@@ -6,16 +6,27 @@
 Phases, each printing a line:
   1. environment: GPU name and power limit, torch/CUDA versions,
      whether the native host library loaded;
-  2. build the three CUDA kernels from sina_tpu_torch/csrc;
+  2. build the five CUDA kernels from sina_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (exact), with both times;
+     main path's shapes (exact), with both times; the graph DP and
+     its traceback on 128 family graphs of 40 references (N = 4096)
+     and 128 full-length queries (M = 1536), in the simple, weighted,
+     bounded-insertion (aspace) and substitution-matrix modes, and the
+     dense route (no measured bucket takes it) on the same bucket;
   4. the CLI (sina_tpu_torch.cli.main --device cuda) on a small
-     generated reference;
-  5. the main path at scale: 100,000 references at width 50,000,
-     640 full-length queries in batches of 128 through famfinder,
-     aligner and the FASTA writer, with every kernel's launch count;
+     generated reference: the profile engine, --fs-graph, --fs-graph
+     --insertion forbid and --use-subst-matrix;
+  5. the profile-engine main path at scale: 100,000 references at
+     width 50,000, full-length queries in batches of 128 through
+     famfinder, aligner and the FASTA writer, with its kernels' launch
+     counts;
   6. the first 16 of those queries again with device="cpu" (the
-     plain versions): the aligned records must be identical.
+     plain versions): the aligned records must be identical;
+  7. the graph engine at the same scale: 384 full-length queries in
+     three batches of 128 with AlignerConfig(engine="graph"), with its
+     kernels' launch counts, the GraphDP sections and buckets;
+  8. the first 16 graph queries again with device="cpu": identical
+     records.
 
 The second-to-last line is the kernels' JSON record, the line before
 it the card's `nvidia-smi` name and power limit, and the last line
@@ -42,6 +53,8 @@ import numpy as np
 B_MAIN, C_MAIN, M_MAIN = 128, 2048, 1536
 KMER_ROWS, KMER_SB, KMER_L, KMER_REAL = 4 ** 9 + 1, 12_544, 512, 360
 N_REFS, WIDTH, N_QUERIES = 100_000, 50_000, 640
+# graph engine: families of 40 references (N bucket 4096), 384 queries
+FAMILY, N_GRAPH, N_GRAPH_QUERIES = 40, 4096, 384
 
 KERNELS = {
     "kmer_score": ("sina_tpu_torch/csrc/kmer_score.cu",
@@ -50,7 +63,13 @@ KERNELS = {
                    "sina_tpu/ops/profile_pallas.py:42"),
     "chain_traceback": ("sina_tpu_torch/csrc/chain_traceback.cu",
                         "sina_tpu/ops/profile_pallas.py:309"),
+    "graph_dp": ("sina_tpu_torch/csrc/graph_dp.cu",
+                 "sina_tpu/ops/graph_pallas.py:107"),
+    "graph_traceback": ("sina_tpu_torch/csrc/graph_traceback.cu",
+                        "sina_tpu/ops/graph_pallas.py:333"),
 }
+PROFILE_PATH = ("kmer_score", "profile_dp", "chain_traceback")
+GRAPH_PATH = ("kmer_score", "graph_dp", "graph_traceback")
 
 
 def say(msg: str) -> None:
@@ -218,6 +237,165 @@ def phase_kernels(dev) -> dict:
     return out
 
 
+def graph_bucket():
+    """128 family graphs of 40 references and 128 full-length queries
+    from a 3,000-reference, width-50,000 generated alignment: each
+    query evolves off a reference, and its family is the first 40
+    members of that reference's ancestor group (the relatives a family
+    search returns).  Queries longer than 1536 are skipped, so the
+    bucket is the main path's N = 4096 x M = 1536.  Returns CPU
+    tensors (pos, mask, weight, predbits, flags, qmask, qlen), the
+    insertion budgets, the ring depth, the column-weight width and the
+    dense route's graph planes (mask, preds, is_start, is_end,
+    n_real)."""
+    import torch
+
+    from sina_tpu import testing
+    from sina_tpu.ops.graph import build_graphs_batch, pad_graph
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    db = testing.make_reference_large(3000, n_core=1450, width=WIDTH, seed=1234)
+    pool = testing.make_queries(db, n=4 * B_MAIN, seed=5, branch_len=0.7)
+    qs = [q for q in pool if len(q.masks) <= M_MAIN][:B_MAIN]
+    fams = []
+    for q in qs:
+        g0 = int(q.attrs["parent"][3:]) // 64 * 64
+        fams.append(db.sequences[g0:g0 + FAMILY])
+    graphs = build_graphs_batch(fams)
+    nr = np.asarray([g.n_nodes for g in graphs], np.int32)
+    if nr.max() > N_GRAPH:
+        raise AssertionError(f"a family graph has {nr.max()} nodes > {N_GRAPH}")
+    graphs = [pad_graph(g, N_GRAPH) for g in graphs]
+    qm = np.zeros((B_MAIN, M_MAIN), np.uint8)
+    ql = np.zeros(B_MAIN, np.int32)
+    for b, q in enumerate(qs):
+        qm[b, :len(q.masks)] = q.masks
+        ql[b] = len(q.masks)
+    preds = np.stack([g.preds for g in graphs])
+    maxd = int((np.arange(N_GRAPH)[None, :, None] - preds)[preds >= 0].max())
+    mask, is_start, is_end = (np.stack([getattr(g, k) for g in graphs])
+                              for k in ("mask", "is_start", "is_end"))
+    mask_u8, predbits, flags = gk.pack_graph_host(mask, preds, is_start, is_end, nr)
+    t = torch.from_numpy
+    ops = (t(np.stack([g.pos for g in graphs]).astype(np.int32)), t(mask_u8),
+           t(np.stack([g.weight for g in graphs]).astype(np.float32)),
+           t(predbits), t(flags), t(qm), t(ql))
+    budget = t(np.stack([np.clip(g.max_insert, 0, 10**6) for g in graphs])
+               .astype(np.int32))
+    say(f"phase 3 graph bucket: {B_MAIN} graphs of {nr.min()}-{nr.max()} "
+        f"nodes padded to {N_GRAPH}, queries of {ql.min()}-{ql.max()} nt "
+        f"in M={M_MAIN}, largest predecessor distance {maxd}")
+    dense = (t(mask_u8), t(preds), t(is_start), t(is_end), t(nr))
+    return ops, budget, gk.pick_k_ring(maxd), graphs[0].width + 2, dense
+
+
+def phase_graph_kernels(dev) -> dict:
+    """The graph DP and its traceback against their plain versions on
+    the card, at the main path's shapes, in four modes: bp, best_j,
+    best_i, raw, emit and the walks' completion must match exactly.
+    In the simple mode the dense route (the torch port of the
+    reference's dense core, for buckets with a predecessor 32 or more
+    nodes back) runs on the same bucket and must give the kernels'
+    emit, best_j, best_i and raw."""
+    import torch
+
+    from sina_tpu_torch.ops import graph_kernel as gk
+    from sina_tpu_torch.ops.align_kernel import DpParams
+
+    ops, budget, k_ring, width, dense = graph_bucket()
+    ops = [a.to(dev) for a in ops]
+    dense = [a.to(dev) for a in dense]
+    flags = ops[4]
+    rng = np.random.default_rng(99)
+    ones = torch.ones((B_MAIN, width), dtype=torch.float32, device=dev)
+    rand_cw = torch.from_numpy(
+        rng.uniform(0.5, 2.0, (B_MAIN, width)).astype(np.float32)).to(dev)
+    subst = torch.from_numpy(
+        rng.uniform(-2, 2, (B_MAIN, 4, 4)).astype(np.float32)).to(dev)
+    modes = {
+        "simple": (ones, None, None),
+        "weighted": (rand_cw, None, None),
+        "aspace": (ones, budget.to(dev), None),
+        "matrix": (rand_cw, None, subst),
+    }
+    params = DpParams()
+    out = {}
+    for mode, (cw, max_ins, sm) in modes.items():
+        def kernel():
+            return gk.graph_dp(*ops, cw, max_ins, sm, params=params, k_ring=k_ring)
+
+        got = kernel()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = gk.graph_dp_plain(*ops, cw, max_ins, sm, params=params, k_ring=k_ring)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for n, a, b in zip(("bp", "best_j", "best_i", "raw"), got, ref):
+            if not torch.equal(a, b):
+                bad = int((a != b).sum())
+                raise AssertionError(
+                    f"graph_dp ({mode}) {n} disagrees with its plain version ({bad} cells)")
+        emit, done = gk.graph_traceback(*got[:3], flags)
+        t0 = time.perf_counter()
+        emit_ref, done_ref = gk.graph_traceback_plain(*ref[:3], flags)
+        tb_plain_ms = (time.perf_counter() - t0) * 1e3
+        if not (torch.equal(emit, emit_ref) and torch.equal(done, done_ref)):
+            raise AssertionError(f"graph_traceback ({mode}) disagrees with its plain version")
+        if int(done.min()) != 1:
+            raise AssertionError(f"graph_traceback ({mode}): a walk did not finish")
+        aligned = int((emit >= 0).sum(dim=1).min())
+        ms = time_ms(kernel, 3)
+        tb_ms = time_ms(lambda: gk.graph_traceback(*got[:3], flags), 5)
+        say(f"phase 3 graph_dp {mode}: B={B_MAIN} N={N_GRAPH} M={M_MAIN} "
+            f"K={k_ring} bp/best_j/best_i/raw exact; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        say(f"phase 3 graph_traceback {mode}: emit exact (fewest bases "
+            f"emitted in a row: {aligned}); kernel {tb_ms:.3f} ms, plain "
+            f"(host walk) {tb_plain_ms:.3f} ms")
+        if mode == "simple":
+            phase_dense_route(ops, dense, cw, got, emit, params)
+            out["graph_dp"] = {"max_abs_err": float((got[3] - ref[3]).abs().max()),
+                               "ms": ms, "plain_ms": plain_ms}
+            out["graph_traceback"] = {"max_abs_err": int((emit - emit_ref).abs().max()),
+                                      "ms": tb_ms, "plain_ms": tb_plain_ms}
+        del got, ref, emit, emit_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_route(ops, dense, cw, got, emit, params) -> None:
+    """The dense route on the graph kernels' bucket, timed once: its
+    emit, best_j, best_i and raw must equal the kernels'."""
+    import torch
+
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    pos, _, weight, _, _, qmask, qlen = ops
+    mask, preds, is_start, is_end, n_real = dense
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp, bj, bi, raw = ak.poa_dp_dense(pos, mask, weight, preds, is_start, is_end,
+                                      qmask, qlen, n_real, cw, params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    demit, done = ak.traceback_dense(bp, bj, bi, preds, is_start)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del bp
+    if int(done.min()) != 1:
+        raise AssertionError("dense route: a traceback walk did not finish")
+    for n, a, b in (("emit", demit, emit), ("best_j", bj.int(), got[1]),
+                    ("best_i", bi.int(), got[2]), ("raw", raw, got[3])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dense route {n} differs from the graph kernels' "
+                                 f"({int((a != b).sum())} cells)")
+    say(f"phase 3 graph dense route simple: same bucket, emit/best_j/best_i/raw "
+        f"equal to the kernels'; poa_dp_dense {1e3 * (t1 - t0):.3f} ms, "
+        f"traceback_dense {1e3 * (t2 - t1):.3f} ms (torch, one run)")
+
+
 _STAMP = re.compile(r"aligned_slv=\d{4}-\d\d-\d\d \d\d:\d\d:\d\d")
 
 
@@ -269,18 +447,21 @@ def phase_cli(tmp: Path) -> None:
     with FastaWriter(str(qin)) as w:
         for q in queries:
             w.write(q)
-    t0 = time.perf_counter()
-    rc = cli.main(["-i", str(qin), "-r", str(ref), "-o", str(out),
-                   "--fs-min", "10", "--fs-max", "10", "--fs-full-len",
-                   "400", "--fs-req-gaps", "1", "--meta-fmt", "comment",
-                   "--device", "cuda", "-q"])
-    if rc != 0:
-        raise AssertionError(f"cli.main exited {rc}")
-    n = check_records(out, queries, db.width)
-    if n != len(queries):
-        raise AssertionError(f"cli wrote {n} of {len(queries)} records")
-    say(f"phase 4 cli: rc=0, {n}/{len(queries)} records of width "
-        f"{db.width} with their query bases ({time.perf_counter() - t0:.2f}s)")
+    for extra in ([], ["--fs-graph"], ["--fs-graph", "--insertion", "forbid"],
+                  ["--use-subst-matrix"]):
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", str(qin), "-r", str(ref), "-o", str(out),
+                       "--fs-min", "10", "--fs-max", "10", "--fs-full-len",
+                       "400", "--fs-req-gaps", "1", "--meta-fmt", "comment",
+                       "--device", "cuda", "-q", *extra])
+        if rc != 0:
+            raise AssertionError(f"cli.main {extra} exited {rc}")
+        n = check_records(out, queries, db.width)
+        if n != len(queries):
+            raise AssertionError(f"cli {extra} wrote {n} of {len(queries)} records")
+        say(f"phase 4 cli {' '.join(extra) or '(profile engine)'}: rc=0, "
+            f"{n}/{len(queries)} records of width {db.width} with their "
+            f"query bases ({time.perf_counter() - t0:.2f}s)")
 
 
 def _run_batches(finder, batches, acfg, device):
@@ -328,7 +509,7 @@ def device_busy(fn) -> tuple[float, float, list]:
     return sum(ms for ms, _ in per), wall, per
 
 
-def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object]:
+def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
     """100,000 references at width 50,000; 640 full-length queries in
     five batches of 128 (the first one warms up)."""
     import torch
@@ -377,7 +558,7 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object]:
     n_ok = check_records(out, queries, WIDTH)
     if n_ok < 0.95 * N_QUERIES:
         raise AssertionError(f"only {n_ok} of {N_QUERIES} queries aligned")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PROFILE_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     say(f"phase 5 main path: {n_ok}/{N_QUERIES} aligned, width {WIDTH}, "
@@ -395,25 +576,85 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object]:
     else:
         say("phase 5 device busy: not measured (the profiler recorded "
             "no device activity)")
-    return launches, aligned[:16], pristine, finder
+    return launches, aligned[:16], pristine, finder, db
 
 
-def phase_cpu_parity(finder, gpu_records, queries, tmp: Path) -> None:
+def phase_cpu_parity(finder, gpu_records, queries, tmp: Path, acfg,
+                     phase: str) -> None:
     """The first 16 queries again with device="cpu" (the plain
     versions): the aligned records must equal the GPU run's."""
     import torch
 
-    from sina_tpu_torch.align import AlignerConfig
-
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    got = _run_batches(finder.on_device(cpu), [queries], AlignerConfig(), cpu)
+    got = _run_batches(finder.on_device(cpu), [queries], acfg, cpu)
     a = fasta_text(gpu_records, tmp / "gpu16.fasta")
     b = fasta_text(got, tmp / "cpu16.fasta")
     if a != b:
-        raise AssertionError("CPU (plain versions) and GPU records differ")
-    say(f"phase 6 parity: {len(got)} records identical on cpu and gpu "
+        raise AssertionError(f"{phase}: CPU (plain versions) and GPU records differ")
+    say(f"{phase} parity: {len(got)} records identical on cpu and gpu "
         f"({time.perf_counter() - t0:.1f}s on the cpu)")
+
+
+def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
+    """The graph engine at the profile path's scale: 384 full-length
+    queries in three batches of 128 (the first one warms up) with
+    AlignerConfig(engine="graph"), against the same reference and
+    famfinder."""
+    import torch
+
+    from sina_tpu import testing
+    from sina_tpu.timing import _registry, get_timer, reset_all
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.ops import kernels
+
+    queries = [testing.unaligned_copy(q) for q in
+               testing.make_queries(db, n=N_GRAPH_QUERIES, seed=11, branch_len=0.7)]
+    pristine = [testing.unaligned_copy(q) for q in queries[:16]]
+    batches = [queries[i:i + B_MAIN] for i in range(0, N_GRAPH_QUERIES, B_MAIN)]
+    acfg = AlignerConfig(engine="graph")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    aligned = _run_batches(finder, batches[:1], acfg, dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    reset_all()
+    t0 = time.perf_counter()
+    aligned += _run_batches(finder, batches[1:], acfg, dev)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    # the (N, M) buckets the dispatcher formed in the steady batches,
+    # with their queries
+    buckets = {k: n for k, n in get_timer("GraphDP").counts.items()
+               if k.startswith("bucket ")}
+    n_steady = N_GRAPH_QUERIES - B_MAIN
+    for name, t in _registry.items():
+        say(f"  timings {name}: {t}")
+    out = tmp / "graph.fasta"
+    fasta_text([a for a in aligned if a is not None], out)
+    n_ok = check_records(out, queries, WIDTH)
+    if n_ok < 0.95 * N_GRAPH_QUERIES:
+        raise AssertionError(f"graph path: only {n_ok} of {N_GRAPH_QUERIES} queries aligned")
+    missing = [k for k in GRAPH_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the graph path: {missing}")
+    say(f"phase 7 graph path: {n_ok}/{N_GRAPH_QUERIES} aligned, width {WIDTH}, "
+        f"bases preserved; warmup batch {t_warm:.2f}s; steady {n_steady} "
+        f"seqs in {t_steady:.3f}s = {n_steady / t_steady:.2f} seq/s on "
+        f"{gpu_line()}; steady buckets (N x M: queries) {buckets}; dense-route "
+        f"buckets {launches['graph_dense_route']}; launches {launches}")
+    busy, wall, per = device_busy(
+        lambda: _run_batches(finder, batches[1:], acfg, dev))
+    if busy > 0:
+        say(f"phase 7 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
+        for ms, name in per[:8]:
+            say(f"  device {ms:9.3f} ms  {name[:90]}")
+    else:
+        say("phase 7 device busy: not measured (the profiler recorded "
+            "no device activity)")
+    return launches, aligned[:16], pristine
 
 
 def main() -> int:
@@ -424,14 +665,23 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    from sina_tpu_torch.align import AlignerConfig
+
     smi = phase_environment()
     phase_build()
     timing = phase_kernels(dev)
+    timing.update(phase_graph_kernels(dev))
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
         phase_cli(tmp)
-        launches, gpu16, queries16, finder = phase_main_path(dev, tmp)
-        phase_cpu_parity(finder, gpu16, queries16, tmp)
+        launches, gpu16, queries16, finder, db = phase_main_path(dev, tmp)
+        phase_cpu_parity(finder, gpu16, queries16, tmp, AlignerConfig(),
+                         "phase 6")
+        glaunches, ggpu16, gqueries16 = phase_graph_path(dev, tmp, finder, db)
+        phase_cpu_parity(finder, ggpu16, gqueries16, tmp,
+                         AlignerConfig(engine="graph"), "phase 8")
+    # each kernel's launches from the path that runs it
+    launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timing[name]}

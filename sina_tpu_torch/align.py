@@ -1,12 +1,14 @@
 """Aligner stage: NAST alignment of a query against its family.
 
-Port of sina_tpu/align.py, profile engine only: exact/superstring
-alignment copy (with native containment), column trimming, shape
-buckets and bucket merging, the batched profile DP on the torch device
-(ops/profile), and the host NAST finish.  The host logic is copied
-from the reference as it is (byte parity of the output depends on
-it); the graph engine (--fs-graph), --insertion forbid and
---debug-lattice are not ported yet.
+Port of sina_tpu/align.py: exact/superstring alignment copy (with
+native containment), the profile engine (column trimming, shape
+buckets and bucket merging, the batched profile DP of ops/profile),
+the graph (mseq) engine (per-family POA graphs, the graph DP and its
+traceback of ops/graph_kernel, or the dense route of ops/align_kernel
+for graphs with far predecessors), and the host NAST finish.  The host
+logic is copied from the reference as it is (byte parity of the output
+depends on it).  Not ported yet: --insertion forbid on the profile
+engine, and --debug-lattice.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from sina_tpu.comparator import Comparator, IUPAC_OPTIMISTIC, COVER_OVERLAP
 from sina_tpu.sequence import Sequence
 from sina_tpu.timing import get_timer
 
+from sina_tpu.ops.graph import LinearGraph
+
 from .ops import align_kernel as ak
+from .ops import kernels
 
 logger = logging.getLogger("sina.align")
 
@@ -75,9 +80,8 @@ class AlignerConfig:
     # that region per query to lattice_<name>.dot (--debug-lattice;
     # mesh_to_svg, mesh_debug.h:103-193)
     debug_lattice: str = ""
-    # "profile" (pseq chain DP, this package's only engine), "graph"
-    # (mseq DAG DP, the reference's default; not ported yet), or
-    # "auto" (= profile)
+    # "profile" (pseq chain DP, the default here), "graph" (mseq DAG
+    # DP, the reference's default), or "auto" (= profile)
     engine: str = "auto"
     # trim the profile-DP lattice to each query's anchored column
     # window (sina_tpu/ops/colspan.py) — a throughput lever for
@@ -578,19 +582,20 @@ def align_dispatch(
     device: torch.device | str = "cuda",
 ):
     """Dispatch a batch alignment WITHOUT fetching: runs the copy
-    path, builds profiles and launches the device DP per shape
+    path, builds profiles/graphs and launches the device DP per shape
     bucket, then returns an in-flight handle for align_finalize
-    (sina_tpu/align.py:584-806, profile engine)."""
+    (sina_tpu/align.py:584-806)."""
     cfg = cfg or AlignerConfig()
-    if cfg.resolved_engine() != "profile":
+    engine = cfg.resolved_engine()
+    if engine == "profile" and cfg.insertion == INSERTION_FORBID:
         raise NotImplementedError(
-            "the graph engine is not ported to sina_tpu_torch yet; use "
-            "the JAX package (python -m sina_tpu --fs-graph)"
-        )
-    if cfg.insertion == INSERTION_FORBID or cfg.debug_lattice:
-        raise NotImplementedError(
-            "--insertion forbid and --debug-lattice are not ported to "
+            "--insertion forbid on the profile engine is not ported to "
             "sina_tpu_torch yet; use the JAX package (python -m sina_tpu)"
+        )
+    if cfg.debug_lattice:
+        raise NotImplementedError(
+            "--debug-lattice is not ported to sina_tpu_torch yet; use "
+            "the JAX package (python -m sina_tpu)"
         )
     device = torch.device(device)
     B = len(queries)
@@ -599,6 +604,7 @@ def align_dispatch(
     results: list[Sequence | None] = [None] * B
 
     todo = []  # (idx, q_upper, template, cw, refs, log)
+    graph_cache: dict[tuple, LinearGraph] = {}
     _tcopy = get_timer("Aligner").section("copy path")
     _tcopy.__enter__()
     with get_timer("Aligner").section("copy: containment"):
@@ -629,12 +635,27 @@ def align_dispatch(
             continue
         refs = [it[1] for it in family]
         top_score = family[0][0]  # dist for the subst-matrix scheme
-        # profile construction happens batched per bucket; only the
-        # occupied-column count is needed for bucketing and is
-        # computed in one batched pass after this loop
-        n_shape = -1
-        template = None
-        cw = _ones_cw(refs[0].width)
+        if engine == "graph":
+            # identical families (shared Sequence objects from the
+            # famfinder) build one graph, like the profile dedup;
+            # graphs for the whole batch build in one parallel native
+            # pass after this loop (build_graphs_batch)
+            gkey = tuple(id(r) for r in refs)
+            template = graph_cache.get(gkey)
+            if col_weights_list[idx] is not None:
+                cw = np.ones(refs[0].width + 2, dtype=np.float32)
+                w = col_weights_list[idx]
+                cw[: len(w)] = w
+            else:
+                cw = _ones_cw(refs[0].width)
+            n_shape = template.n_nodes if template is not None else -1
+        else:
+            # profile construction happens batched per bucket; only
+            # the occupied-column count is needed for bucketing and
+            # is computed in one batched pass after this loop
+            n_shape = -1
+            template = None
+            cw = _ones_cw(refs[0].width)
         q = query.copy()
         if cfg.lowercase != LOWERCASE_ORIGINAL:
             q.upper_case_all()
@@ -643,7 +664,37 @@ def align_dispatch(
         )
     _tcopy.__exit__(None, None, None)
 
-    if todo:
+    if todo and engine == "graph":
+        from sina_tpu.ops.graph import build_graphs_batch
+
+        pending = [it for it in todo if it[2] is None]
+        if pending:
+            ukeys: dict[tuple, int] = {}
+            ufams: list[list[Sequence]] = []
+            for it in pending:
+                kkey = tuple(id(r) for r in it[4])
+                if kkey not in ukeys:
+                    ukeys[kkey] = len(ufams)
+                    ufams.append(it[4])
+            with get_timer("Aligner").section("build graph"):
+                built = build_graphs_batch(ufams, cfg.fs_weight)
+            for kkey, ui in ukeys.items():
+                graph_cache[kkey] = built[ui]
+            for it in pending:
+                it[2] = graph_cache[tuple(id(r) for r in it[4])]
+                it[6] = it[2].n_nodes
+        if cfg.debug_graph:
+            from sina_tpu.ops.graph import graph_to_dot
+
+            for it in todo:
+                # reference naming: mseq_<name>.dot (align.cpp:511-513)
+                name = queries[it[0]].name or it[0]
+                fname = f"mseq_{name}.dot"
+                with open(fname, "w") as fh:
+                    fh.write(graph_to_dot(it[2]))
+                logger.info("wrote %s", fname)
+
+    if todo and engine != "graph":
         with get_timer("Aligner").section("count cols"):
             counts = _count_cols_batch([it[4] for it in todo])
         for it, c in zip(todo, counts):
@@ -655,22 +706,35 @@ def align_dispatch(
             with get_timer("Aligner").section("col trim"):
                 _trim_windows(todo, cfg.col_trim_min_cols)
 
-    # group into shape buckets: 256-step classes below 1024 columns
+    # group into shape buckets.  The graph engine snaps both axes
+    # coarsely (sina_tpu/align.py:727-749): nodes to powers of two (min
+    # 2048), query length to 512-steps up to 2048 and powers of two
+    # beyond.  The profile engine: 256-step classes below 1024 columns
     # (col-trimmed amplicon windows land at ~500-800), the coarse
     # node_bucket grid above
+    def _pow2(v: int, lo: int) -> int:
+        return max(lo, 1 << max(int(v) - 1, 1).bit_length())
+
     buckets: dict[tuple[int, int], list] = {}
     for item in todo:
         n_shape = item[6]
         q = item[1]
-        key = (
-            _bucket(n_shape, 256)
-            if n_shape <= 1024 - 256
-            else _bucket(n_shape, node_bucket),
-            _bucket(len(q.masks), query_bucket),
-        )
+        if engine == "graph":
+            m = len(q.masks)
+            key = (
+                _pow2(n_shape, 2048),
+                _bucket(m, 512) if m <= 2048 else _pow2(m, 2048),
+            )
+        else:
+            key = (
+                _bucket(n_shape, 256)
+                if n_shape <= 1024 - 256
+                else _bucket(n_shape, node_bucket),
+                _bucket(len(q.masks), query_bucket),
+            )
         buckets.setdefault(key, []).append(item)
 
-    if len(buckets) > 1:
+    if engine != "graph" and len(buckets) > 1:
         # merge near-size profile buckets into one padded launch
         # (sina_tpu/align.py:763-787): rows carry their real sizes
         # (cr), so merging only changes padding, not results.  Merge
@@ -691,8 +755,12 @@ def align_dispatch(
     params = cfg.dp_params()
     thunks = []
     for (npad, mpad), items in buckets.items():
+        dispatch = (
+            _dispatch_graph_bucket if engine == "graph"
+            else _dispatch_profile_bucket
+        )
         thunks.append(
-            _dispatch_profile_bucket(
+            dispatch(
                 items, npad, mpad, params, cfg, queries,
                 astats_names, results, device,
             )
@@ -707,6 +775,38 @@ def align_finalize(state) -> list[Sequence | None]:
         t()
     return results
 
+
+class _StackArena:
+    """Reusable host buffers for the graph batch planes
+    (sina_tpu/align.py:900-932): large fresh np.zeros/np.full planes
+    per dispatch made the host "stack" section swing with allocator
+    behaviour (mmap, free, refault).  Banks are acquired per dispatch
+    and released by that dispatch's finalize closure, so a buffer is
+    never refilled while a copy of it may still be pending."""
+
+    def __init__(self):
+        self._free: list[dict] = []
+
+    def acquire(self) -> dict:
+        return self._free.pop() if self._free else dict()
+
+    def release(self, bank: dict) -> None:
+        self._free.append(bank)
+
+    @staticmethod
+    def take(bank: dict, key: str, shape, dtype):
+        buf = bank.get(key)
+        if (
+            buf is None
+            or buf.shape != tuple(shape)
+            or buf.dtype != dtype
+        ):
+            buf = np.empty(shape, dtype)
+            bank[key] = buf
+        return buf
+
+
+_stack_arena = _StackArena()
 
 _ones_cw_cache: dict[int, np.ndarray] = {}
 
@@ -724,6 +824,187 @@ def _ones_cw(width: int) -> np.ndarray:
         _ones_cw_cache.clear()  # one width per db in practice
         _ones_cw_cache[width] = a
     return a
+
+
+def _dispatch_graph_bucket(
+    items, npad, mpad, params, cfg, queries, astats_names, results,
+    device,
+):
+    """Stack one bucket's graphs and launch the graph DP and its
+    traceback (sina_tpu/align.py:956-1131); returns the finalize
+    thunk.  A bucket whose largest predecessor distance fits the
+    kernel's 5-bit fields (< 32, every MSA-derived graph measured)
+    launches the two kernels at once, without chunking; a larger one
+    takes the dense route, chosen by shape as the reference chooses
+    it.  Device work is queued without synchronising; the thunk
+    fetches it."""
+    from .ops.graph_kernel import (
+        check_walks, graph_dp, graph_traceback, pack_graph_host,
+        pick_k_ring,
+    )
+
+    tg = get_timer("GraphDP")
+    # the bucket shapes formed, with their query counts
+    tg.sections[f"bucket {npad}x{mpad}"] += 0.0
+    tg.counts[f"bucket {npad}x{mpad}"] += len(items)
+    wmax = max(len(it[3]) for it in items)
+    cw_pad = np.ones((len(items), wmax), dtype=np.float32)
+    qm = np.zeros((len(items), mpad), dtype=np.uint8)
+    ql = np.zeros(len(items), dtype=np.int32)
+    nr = np.zeros(len(items), dtype=np.int32)
+    for b, it in enumerate(items):
+        _, q, graph, cw = it[:4]
+        qm[b, : len(q.masks)] = q.masks
+        ql[b] = len(q.masks)
+        nr[b] = graph.n_nodes
+        cw_pad[b, : len(cw)] = cw
+    subst = None
+    if cfg.use_subst_matrix:
+        # experimental matrix scheme: per-family log-odds matrix from
+        # family base frequencies at the family's top identity
+        # (align.cpp:417-427; the reference's own matrix generator is
+        # disabled upstream — see stats.subst_matrix)
+        from sina_tpu.stats import family_base_freqs, subst_matrix
+
+        subst = np.stack(
+            [
+                subst_matrix(
+                    family_base_freqs(it[4]), float(it[7])
+                )
+                for it in items
+            ]
+        ).astype(np.float32)
+        for it in items:
+            it[5].append(f"using dist: {float(it[7]):.6g};")
+    with tg.section("stack"):
+        # batch node planes filled straight from each COMPACT graph
+        # (padding semantics of ops.graph.pad_graph inlined: isolated
+        # non-start non-end nodes at the final column), from the
+        # rotating arena; P snaps to a multiple of 4 so family-to-
+        # family pred-width jitter doesn't defeat buffer reuse
+        B = len(items)
+        width0 = items[0][2].width
+        P = max(it[2].preds.shape[1] for it in items)
+        P = -(-P // 4) * 4
+        bank = _stack_arena.acquire()
+        pos_s = _StackArena.take(bank, "pos", (B, npad), np.int32)
+        pos_s.fill(width0 - 1)
+        mask_s = _StackArena.take(bank, "mask", (B, npad), np.uint8)
+        mask_s.fill(0)
+        weight_s = _StackArena.take(
+            bank, "weight", (B, npad), np.float32
+        )
+        weight_s.fill(0)
+        preds_s = _StackArena.take(
+            bank, "preds", (B, npad, P), np.int32
+        )
+        preds_s.fill(-1)
+        start_s = _StackArena.take(bank, "start", (B, npad), bool)
+        start_s.fill(False)
+        end_s = _StackArena.take(bank, "end", (B, npad), bool)
+        end_s.fill(False)
+        need_budget = cfg.insertion == INSERTION_FORBID
+        if need_budget:
+            maxi_s = _StackArena.take(
+                bank, "maxi", (B, npad), np.int32
+            )
+            maxi_s.fill(0)
+        else:
+            maxi_s = None
+        maxd = 0
+        for b, it in enumerate(items):
+            g = it[2]
+            n = g.n_nodes
+            pos_s[b, :n] = g.pos
+            mask_s[b, :n] = g.mask
+            weight_s[b, :n] = g.weight
+            preds_s[b, :n, : g.preds.shape[1]] = g.preds
+            start_s[b, :n] = g.is_start
+            end_s[b, :n] = g.is_end
+            if maxi_s is not None:
+                maxi_s[b, :n] = g.max_insert
+            v = g.preds >= 0
+            if v.any():
+                d = (
+                    np.arange(n, dtype=np.int32)[:, None] - g.preds
+                )[v].max()
+                maxd = max(maxd, int(d))
+    # the kernel when every predecessor is nearby in topological order
+    # (always true for MSA-derived POA graphs): 0 < maxd < 32, as the
+    # reference's window test (sina_tpu/align.py:1051)
+    k_ring = pick_k_ring(maxd) if maxd > 0 else 0
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if k_ring:
+        with tg.section("pack"):
+            mask_u8, predbits, flags = pack_graph_host(
+                mask_s, preds_s, start_s, end_s, nr
+            )
+    else:
+        # a predecessor 32 or more topological positions back (or no
+        # edge at all): the kernel's distance fields cannot hold it, so
+        # the bucket takes the reference's dense core
+        # (sina_tpu/align.py:1051,1084-1105)
+        logger.info(
+            "graph bucket (%d x %d, %d queries): largest predecessor "
+            "distance %d is not in 1..31, taking the dense route",
+            npad, mpad, B, maxd,
+        )
+        kernels.launches["graph_dense_route"] += 1
+    with tg.section("launch"):
+        if k_ring:
+            flags_d = up(flags)
+            bp, bj, bi, raw = graph_dp(
+                up(pos_s), up(mask_u8), up(weight_s), up(predbits),
+                flags_d, up(qm), up(ql), up(cw_pad),
+                None if maxi_s is None else up(maxi_s),
+                None if subst is None else up(subst),
+                params=params, k_ring=k_ring,
+            )
+            emit, done = graph_traceback(bp, bj, bi, flags_d)
+        else:
+            preds_d, start_d = up(preds_s), up(start_s)
+            bp, bj, bi, raw = ak.poa_dp_dense(
+                up(pos_s), up(mask_s), up(weight_s), preds_d, start_d,
+                up(end_s), up(qm), up(ql), up(nr), up(cw_pad), params,
+                max_insert=None if maxi_s is None else up(maxi_s),
+                subst=None if subst is None else up(subst),
+            )
+            emit, done = ak.traceback_dense(bp, bj, bi, preds_d, start_d)
+        # one (B, M+4) int32 result = one device-to-host copy
+        out = torch.cat(
+            [emit, bj.to(torch.int32)[:, None], bi.to(torch.int32)[:, None],
+             raw.view(torch.int32)[:, None], done[:, None]],
+            dim=1,
+        )
+        del bp
+
+    def finalize():
+        with tg.section("fetch"):
+            packed = out.cpu().numpy()
+        # results fetched => every copy of this dispatch's plane
+        # buffers completed; safe to recycle the bank
+        _stack_arena.release(bank)
+        emit_h = packed[:, :-4]
+        bj_h, bi_h = packed[:, -4], packed[:, -3]
+        raw_h = packed[:, -2].copy().view(np.float32)
+        check_walks(packed[:, -1])
+        with tg.section("finish"):
+            for b, it in enumerate(items):
+                idx, q, graph, cw, refs, log = it[:6]
+                eidx = np.nonzero(emit_h[b] >= 0)[0]
+                head = int(eidx[0]) if len(eidx) else 0
+                pairs = (emit_h[b][eidx], eidx)
+                results[idx] = finish_alignment(
+                    queries[idx], q, graph.pos, graph.weight,
+                    graph.width, pairs, head, int(bj_h[b]), int(bi_h[b]),
+                    float(raw_h[b]), cfg, cw, refs, astats_names[idx],
+                    list(log),
+                )
+
+    return finalize
 
 
 def _dispatch_profile_bucket(

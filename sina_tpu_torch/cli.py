@@ -18,11 +18,21 @@ from .align import AlignerConfig
 from .famfinder import FamFinderConfig
 from .pipeline import Pipeline, PipelineConfig
 
+
+def _engine(args) -> str:
+    """The alignment engine the parsed options select."""
+    return AlignerConfig(
+        fs_no_graph=args.fs_no_graph,
+        use_subst_matrix=args.use_subst_matrix,
+        engine="graph" if args.fs_graph else "auto",
+    ).resolved_engine()
+
+
 # (test on the parsed arguments, the option as the user wrote it)
 UNPORTED = (
-    (lambda a: a.fs_graph, "--fs-graph"),
-    (lambda a: a.use_subst_matrix, "--use-subst-matrix"),
-    (lambda a: a.insertion == "forbid", "--insertion forbid"),
+    # forbid mode runs on the graph engine only
+    (lambda a: a.insertion == "forbid" and _engine(a) == "profile",
+     "--insertion forbid"),
     (lambda a: a.turn != "none", "--turn"),
     (lambda a: a.search, "-S/--search"),
     (lambda a: a.multihost, "--multihost"),
@@ -136,8 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use profile vector instead of DAG as template"
                    " (the default here; see --fs-graph)")
     g.add_argument("--fs-graph", action="store_true",
-                   help="force the reference-faithful DAG aligner "
-                   "(not ported to this package: use python -m sina_tpu)")
+                   help="force the reference-faithful DAG aligner")
     g.add_argument("--fs-weight", type=float, default=1.0)
     g.add_argument("--match-score", type=float, default=2.0)
     g.add_argument("--mismatch-score", type=float, default=-1.0)
@@ -147,7 +156,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--calc-idty", action="store_true")
     g.add_argument("--use-subst-matrix", action="store_true",
                    help="use experimental scoring system (graph engine "
-                   "only; not ported: use python -m sina_tpu)")
+                   "only)")
     g.add_argument("--no-col-trim", action="store_true",
                    help="disable trimming the profile-DP lattice to "
                    "each query's anchored column window (a speedup for "

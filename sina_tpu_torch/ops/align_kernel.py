@@ -1,10 +1,31 @@
 """Constants and parameters shared by the alignment DPs
-(sina_tpu/ops/align_kernel.py:47-63).  The POA graph DP cores are not
-ported yet; the profile engine needs only these."""
+(sina_tpu/ops/align_kernel.py:47-63), and the dense-predecessor route
+of the graph engine.
+
+The dense route is the port of the reference's XLA graph core
+poa_dp_costs with its three cost set-ups (poa_dp, poa_dp_forbid,
+poa_dp_subst), _windowed_min and traceback_device
+(sina_tpu/ops/align_kernel.py:70-229, 231-258, 409-545, 549-606,
+616-714), as batched torch code on the bucket's device.  The reference
+runs a bucket whose largest predecessor distance is 32 or more through
+it on every backend (sina_tpu/align.py:1051, 1084-1105): the graph
+kernel's 5-bit distance fields cannot carry such distances.  The
+dispatcher chooses it by shape before any launch; it is not a
+fallback for a kernel that failed.  Its backpointers are slot-coded:
+
+  bits 0-1  V choice: 0=edge, 1=match, 2=deletion, 3=insertion
+  bits 2-4  match predecessor slot
+  bits 5-7  deletion predecessor slot
+  bit  8    deletion opened here
+  bit  9    insertion opened here
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
 
 BIG = 1e6
 
@@ -12,6 +33,11 @@ CODE_EDGE = 0
 CODE_MATCH = 1
 CODE_DEL = 2
 CODE_INS = 3
+
+# traceback states (sina_tpu/ops/align_kernel.py:616-623,
+# graph_pallas.py:338-339)
+_S_RESOLVE, _S_CHAIN, _S_DECIDE, _S_INS = 0, 1, 2, 3
+_S_RESOLVE_NE, _S_CHAIN_NE, _S_DONE = 4, 5, 6
 
 
 @dataclass(frozen=True)
@@ -23,3 +49,287 @@ class DpParams:
     mismatch: float = 1.0
     gap_open: float = 5.0
     gap_ext: float = 2.0
+
+
+def _shift_right(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    pad = torch.full(x.shape[:-1] + (n,), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x[..., :-n]], dim=-1)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32.  The reference's compiled DPs
+    contract multiply-adds to fused multiply-adds: the graph kernel
+    (graph_dp_pallas_packed, interpret mode) contracts three (Mc, the
+    insertion candidate and Irow), the XLA cores the last two (their
+    substitution costs are precomputed, so Mc is a plain add); measured
+    on the CPU test fixtures.
+    The product of two f32 is exact in double, so the double sum
+    rounded to f32 is the fused result except where the double sum
+    lands exactly on a tie between two floats.  csrc/graph_dp.cu does
+    the same double operations, so kernel and plain version agree
+    bit for bit."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _windowed_min(x: torch.Tensor, R: torch.Tensor, M: int) -> torch.Tensor:
+    """Per-row trailing-window minimum out[b, i] = min x[b, i-R[b]+1 .. i]
+    over (B, M) rows with a per-row window R (B, 1), BIG standing in
+    for lanes before 0 (the aspace-aware insertion budget,
+    mesh.h:403-437): sparse-table doubling, the level of the largest
+    power of two <= R and one shifted copy of it
+    (sina_tpu/ops/align_kernel.py:231-258, graph_pallas.py:79-104).
+    Only the levels the widest window needs are built."""
+    Rc = torch.clamp(R, 1, M).long()
+    smax = int(Rc.max()).bit_length() - 1
+    levels = [x]
+    for k in range(smax):
+        n = 1 << k
+        levels.append(torch.minimum(levels[-1], F.pad(levels[-1][:, :-n], (n, 0), value=BIG)))
+    s = torch.zeros_like(Rc)
+    t_sel = x
+    for k in range(1, smax + 1):
+        at = Rc >= (1 << k)
+        s += at.long()
+        t_sel = torch.where(at, levels[k], t_sel)
+    idx = torch.arange(M, device=x.device)[None, :] - (Rc - (1 << s))
+    b2 = t_sel.gather(1, idx.clamp(min=0)).masked_fill_(idx < 0, BIG)
+    return torch.minimum(t_sel, b2)
+
+
+def _dense_sub(j, mask, qm, subw, match, mismatch, sq, pq):
+    """Substitution costs of node j for every query, (B, M): the simple
+    or weighted scheme (poa_dp:92-97) or, with sq/pq, the matrix scheme
+    (poa_dp_subst:162-182), elementwise in the reference's order."""
+    nm = mask[:, j : j + 1]
+    if sq is None:
+        compat = (nm & qm & 0xF) != 0
+        return torch.where(compat, match, mismatch) * subw[:, j : j + 1]
+    numer = torch.zeros_like(pq)
+    pn = torch.zeros((nm.shape[0], 1), dtype=pq.dtype, device=pq.device)
+    for l in range(4):
+        bit = ((nm >> l) & 1).to(pq.dtype)
+        numer = numer + bit * sq[l]
+        pn = pn + bit
+    denom = torch.maximum(pn * pq, torch.ones((), dtype=pq.dtype, device=pq.device))
+    return (numer / denom) * subw[:, j : j + 1]
+
+
+def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
+                 n_real, col_weights, params: DpParams, max_insert=None,
+                 subst=None):
+    """The dense graph DP over whole (N+1, M) lattices, batched: the
+    cost set-up of poa_dp / poa_dp_forbid (or poa_dp_subst with
+    `subst` (B, 4, 4)) and poa_dp_costs (align_kernel.py:409-545).
+    pos/mask/weight (B, N), preds (B, N, P) int (-1 pad, P <= 8),
+    is_start/is_end (B, N) bool, qmask (B, M), qlen/n_real (B,),
+    col_weights (B, W) f32, max_insert (B, N) for forbid mode.
+    Returns (bp (B, N, M) int16 slot-coded, best_j, best_i (B,) int64,
+    raw (B,) f32)."""
+    dev = qmask.device
+    f32, i64 = torch.float32, torch.int64
+    B, N = pos.shape
+    M = qmask.shape[1]
+    P = preds.shape[2]
+    if P > 8:
+        raise ValueError(f"slot-coded backpointers hold at most 8 predecessors (P={P})")
+
+    def c(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+
+    go, ge, big, one = c(params.gap_open), c(params.gap_ext), c(BIG), c(1.0)
+    match, mismatch = c(params.match), c(params.mismatch)
+    W = col_weights.shape[1]
+    p = pos.long()
+    wcol = torch.gather(col_weights, 1, p)
+    qm = qmask.long()
+    nmask = mask.long()
+    if subst is None:
+        wins = torch.gather(col_weights, 1, torch.clamp(p + 1, max=W - 1))
+        subw = wcol * weight
+        del_open, del_ext = go * wcol, ge * wcol
+        ins_open, ins_ext = go * wins, ge * wins
+        sq = pq = None
+    else:
+        subw = wcol
+        del_open, del_ext = go * wcol, ge * wcol
+        ins_open, ins_ext = go * wcol, ge * wcol
+        bits_q = [((qm >> s) & 1).to(f32) for s in range(4)]
+        pq = torch.zeros((B, M), dtype=f32, device=dev)
+        for r in range(4):
+            pq = pq + bits_q[r]
+        sq = []
+        for l in range(4):
+            acc = torch.zeros((B, M), dtype=f32, device=dev)
+            for r in range(4):
+                acc = acc + subst[:, l, r : r + 1] * bits_q[r]
+            sq.append(acc)
+
+    lane = torch.arange(M, device=dev)[None, :]
+    flane = lane.to(f32)
+    ql = qlen.long()[:, None]
+    iok = lane < ql
+    valid = torch.arange(N, device=dev)[None, :] < n_real.long()[:, None]
+    endv = is_end.bool() & valid
+    start = is_start.bool()
+    predl = preds.long()
+    V = torch.full((B, N + 1, M), BIG, dtype=f32, device=dev)
+    D = torch.full((B, N + 1, M), BIG, dtype=f32, device=dev)
+    BP = torch.empty((B, N, M), dtype=torch.int16, device=dev)
+    b1v = torch.full((B,), BIG, dtype=f32, device=dev)
+    b1j = torch.zeros(B, dtype=i64, device=dev)
+    b2v = torch.full((B,), BIG, dtype=f32, device=dev)
+    b2j = torch.zeros(B, dtype=i64, device=dev)
+    b2i = torch.zeros(B, dtype=i64, device=dev)
+    bigcol = big.expand(B, P, 1)
+
+    for j in range(N):
+        pj = predl[:, j] + 1                                  # 0 = virtual BIG row
+        ok = (predl[:, j] >= 0)[:, :, None]                    # (B, P, 1)
+        idx = pj[:, :, None].expand(B, P, M)
+        Vp = torch.where(ok, V.gather(1, idx), big)            # (B, P, M)
+        Dp = torch.where(ok, D.gather(1, idx), big)
+
+        edge = start[:, j : j + 1] | (lane == 0)
+        base = torch.where(edge, one, big)
+
+        d_open = Vp + del_open[:, j, None, None]
+        d_ext = Dp + del_ext[:, j, None, None]
+        dcand = torch.minimum(d_open, d_ext)
+        dslot = dcand.argmin(dim=1, keepdim=True)
+        dmin = dcand.gather(1, dslot)[:, 0]
+        # tie: the reference opens only on strict < (mesh.h:316-323)
+        dsel_open = d_open.gather(1, dslot)[:, 0] < d_ext.gather(1, dslot)[:, 0]
+        Drow = torch.minimum(base, dmin)
+
+        Vp_prev = torch.cat([bigcol, Vp[:, :, :-1]], dim=2)
+        mslot = Vp_prev.argmin(dim=1, keepdim=True)
+        sub = _dense_sub(j, nmask, qm, subw, match, mismatch, sq, pq)
+        Mc = Vp_prev.gather(1, mslot)[:, 0] + sub
+
+        # U with reference tie priority: edge keeps ties vs D; M strict
+        take_d = dmin < base
+        U = torch.where(take_d, dmin, base)
+        codeU = torch.where(take_d, CODE_DEL, CODE_EDGE)
+        take_m = Mc < U
+        U = torch.where(take_m, Mc, U)
+        codeU = torch.where(take_m, CODE_MATCH, codeU)
+
+        go_i = ins_open[:, j : j + 1]
+        ge_i = ins_ext[:, j : j + 1]
+        cand = _fma(-(flane + 1.0), ge_i, U + go_i)
+        if max_insert is None:
+            run = torch.cummin(cand, dim=1).values
+            prefix = torch.minimum(_shift_right(run, 1, 1.0), one)
+        else:
+            # bounded runs, no edge seed (mesh.h:403-437)
+            bud = max_insert[:, j : j + 1]
+            wm = _windowed_min(cand, bud, M)
+            prefix = _shift_right(wm, 1, BIG)
+            prefix = torch.where(bud < 1, big, prefix)
+        Irow = _fma(flane, ge_i, prefix)
+        # opened at i (vs extended): U[i-1]+go <= I[i-1]+ge
+        Iprev = _shift_right(Irow, 1, BIG)
+        Uprev = _shift_right(U, 1, BIG)
+        ins_opened = (Uprev + go_i) <= (Iprev + ge_i)
+
+        take_i = Irow <= U                         # ties -> insertion
+        Vrow = torch.where(take_i, Irow, U)
+        code = torch.where(take_i, CODE_INS, codeU)
+        BP[:, j] = (code | (mslot[:, 0] << 2) | (dslot[:, 0] << 5)
+                    | (dsel_open.long() << 8) | (ins_opened.long() << 9)
+                    ).to(torch.int16)
+        V[:, j + 1] = Vrow
+        D[:, j + 1] = Drow
+
+        # end candidates (mesh.h:569-592), kept as running minima with
+        # strict <: the earliest j, then the lowest lane, as the flat
+        # argmins of poa_dp_costs
+        v = torch.where(valid[:, j], Vrow.gather(1, ql - 1)[:, 0], big)
+        upd = v < b1v
+        b1v = torch.where(upd, v, b1v)
+        b1j = torch.where(upd, j, b1j)
+        row = torch.where(endv[:, j : j + 1] & iok, Vrow, big)
+        ia = row.argmin(dim=1, keepdim=True)
+        v = row.gather(1, ia)[:, 0]
+        upd = v < b2v
+        b2v = torch.where(upd, v, b2v)
+        b2j = torch.where(upd, j, b2j)
+        b2i = torch.where(upd, ia[:, 0], b2i)
+
+    use2 = b2v < b1v                                   # strict (mesh.h:588)
+    best_j = torch.where(use2, b2j, b1j)
+    best_i = torch.where(use2, b2i, ql[:, 0] - 1)
+    raw = torch.where(use2, b2v, b1v)
+    return BP, best_j, best_i, raw
+
+
+def traceback_dense(bp, best_j, best_i, preds, is_start):
+    """The traceback state machine of traceback_device
+    (align_kernel.py:626-714) over slot-coded backpointers, stepping all
+    B queries at once.  Returns (emit (B, M) int32, done (B,) int32: 1
+    where the walk reached DONE within N + 2M + 8 steps)."""
+    dev = bp.device
+    B, N, M = bp.shape
+    P = preds.shape[2]
+    predl = preds.long()
+    start = is_start.bool()
+    rows = torch.arange(B, device=dev)
+    j = best_j.long().clone()
+    i = best_i.long().clone()
+    state = torch.full((B,), _S_RESOLVE, dtype=torch.long, device=dev)
+    emit = torch.full((B, M + 1), -1, dtype=torch.int32, device=dev)  # col M: discard
+    dump = torch.full((B,), M, dtype=torch.long, device=dev)
+    for step in range(N + 2 * M + 8):
+        if step % 64 == 0 and not bool((state != _S_DONE).any()):
+            break
+        cell = bp[rows, j, i].long()
+        code = cell & 3
+        mslot = (cell >> 2) & 7
+        dslot = (cell >> 5) & 7
+        dopen = ((cell >> 8) & 1) == 1
+        iopen = ((cell >> 9) & 1) == 1
+        at_edge = (i == 0) | start[rows, j]
+
+        is_res = (state == _S_RESOLVE) | (state == _S_RESOLVE_NE)
+        is_chain = (state == _S_CHAIN) | (state == _S_CHAIN_NE)
+        is_dec = state == _S_DECIDE
+        is_ins = state == _S_INS
+
+        # resolve
+        is_del = (code == CODE_DEL) & ~at_edge
+        res_state = torch.where(
+            is_del, torch.where(state == _S_RESOLVE, _S_CHAIN, _S_CHAIN_NE), _S_DECIDE)
+        # chain
+        pc = predl[rows, j, dslot.clamp(max=P - 1)]
+        pc = torch.where(pc < 0, j, pc)
+        stop = dopen | start[rows, pc]
+        ch_state = torch.where(
+            stop, torch.where(state == _S_CHAIN, _S_RESOLVE, _S_RESOLVE_NE), state)
+        # decide
+        done = at_edge | (code == CODE_EDGE)
+        is_m = code == CODE_MATCH
+        pm = predl[rows, j, mslot.clamp(max=P - 1)]
+        pm = torch.where(pm < 0, j, pm)
+        move = is_m & ~done
+        dec_state = torch.where(
+            done, _S_DONE,
+            torch.where(is_m, _S_RESOLVE,
+                        torch.where(code == CODE_INS, _S_INS, _S_CHAIN_NE)))
+        # insertion run
+        ni = i - 1
+        idone = ni < 0
+        safe = ni.clamp(min=0)
+        ins_state = torch.where(idone, _S_DONE, torch.where(iopen, _S_DECIDE, _S_INS))
+
+        at = torch.where(is_res & (state == _S_RESOLVE) & ~is_del, i,
+                         torch.where(is_ins & ~idone, safe, dump))
+        emit.scatter_(1, at[:, None], j.to(torch.int32)[:, None])
+
+        nj = torch.where(is_chain, pc, torch.where(is_dec & move, pm, j))
+        ni_ = torch.where(is_dec & move, i - 1, torch.where(is_ins, safe, i))
+        state = torch.where(is_res, res_state,
+                            torch.where(is_chain, ch_state,
+                                        torch.where(is_dec, dec_state,
+                                                    torch.where(is_ins, ins_state, state))))
+        j, i = nj, ni_
+    return emit[:, :M].contiguous(), (state == _S_DONE).to(torch.int32)

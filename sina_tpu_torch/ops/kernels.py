@@ -1,6 +1,6 @@
 """Build, load and bind the hand-written CUDA kernels of csrc/.
 
-The three kernels compile with nvcc into one shared library with a
+The kernels compile with nvcc into one shared library with a
 plain C interface (no PyTorch headers: a build takes seconds, not
 minutes) at first use, into the git-ignored ``sina_tpu_torch/_build``
 directory; the file name carries a hash of the sources and flags, so
@@ -26,15 +26,21 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("kmer_score.cu", "profile_dp.cu", "chain_traceback.cu")
-# --fmad=false: the profile DP must keep the reference's f32 rounding
-# (no mul+add contraction to FMA) to stay bit-equal to its plain version
+SOURCES = ("kmer_score.cu", "profile_dp.cu", "chain_traceback.cu",
+           "graph_dp.cu", "graph_traceback.cu")
+# --fmad=false: the DPs must keep the reference's f32 rounding (no
+# mul+add contraction to FMA other than the ones written out) to stay
+# bit-equal to their plain versions
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"kmer_score": 0, "profile_dp": 0, "chain_traceback": 0}
+launches = {"kmer_score": 0, "profile_dp": 0, "chain_traceback": 0,
+            "graph_dp": 0, "graph_traceback": 0,
+            # not a kernel: graph buckets that took the dense route
+            # (ops/align_kernel.poa_dp_dense), counted where chosen
+            "graph_dense_route": 0}
 
 _lib = None
 build_seconds: float | None = None
@@ -104,6 +110,12 @@ def lib() -> ctypes.CDLL:
         so.sina_profile_dp.restype = I
         so.sina_chain_traceback.argtypes = [P, P, P, P, I, I, I, P]
         so.sina_chain_traceback.restype = I
+        so.sina_graph_dp.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
+        so.sina_graph_dp.restype = I
+        so.sina_graph_dp_scratch.argtypes = [I, I]
+        so.sina_graph_dp_scratch.restype = LL
+        so.sina_graph_traceback.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        so.sina_graph_traceback.restype = I
         so.sina_cuda_error_string.argtypes = [I]
         so.sina_cuda_error_string.restype = ctypes.c_char_p
         _lib = so

@@ -136,7 +136,8 @@ class Pipeline:
 
     def _dispatch_batch(self, batch: list[Sequence], handle=None):
         """Stage A of the per-batch software pipeline: famfinder
-        post-processing, copy path, profile build and DP dispatch.
+        post-processing, copy path, profile or graph build and DP
+        dispatch.
         Returns an entry for _finalize_batch; the DP is in flight on
         the device when this returns."""
         cfg = self.cfg

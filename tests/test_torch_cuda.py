@@ -124,3 +124,110 @@ def test_profile_dp_rejects_unsupported_m(cuda):
     fgq, qmask, lens = _profiles(1, 2, 8, 6)
     with pytest.raises(ValueError, match="M % 4"):
         pk.profile_dp(fgq.to(cuda), qmask.to(cuda), lens.to(cuda), DpParams())
+
+
+def _graph_bucket(seed, B, extra_nodes, mpad):
+    """B family graphs of 6 references, padded with `extra_nodes`
+    padding nodes past the largest, and B queries in a (B, mpad)
+    plane, as CPU tensors, plus the graphs' insertion budgets, the
+    column-weight width and the ring depth."""
+    from sina_tpu import testing
+    from sina_tpu.ops.graph import build_graph, pad_graph
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    db = testing.make_reference(n_seqs=30, n_core=120, width=220, seed=seed)
+    graphs = [build_graph(db.sequences[2 * b : 2 * b + 6]) for b in range(B)]
+    nr = np.asarray([g.n_nodes for g in graphs], np.int32)
+    npad = int(nr.max()) + extra_nodes
+    graphs = [pad_graph(g, npad) for g in graphs]
+    qm = np.zeros((B, mpad), np.uint8)
+    ql = np.zeros(B, np.int32)
+    for b in range(B):
+        q = testing.unaligned_copy(testing.make_queries(db, n=1, seed=seed + b, branch_len=0.6)[0])
+        n = min(len(q.masks), mpad)
+        qm[b, :n] = q.masks[:n]
+        ql[b] = n
+    preds = np.stack([g.preds for g in graphs])
+    maxd = int((np.arange(npad)[None, :, None] - preds)[preds >= 0].max())
+    mask_u8, predbits, flags = gk.pack_graph_host(
+        np.stack([g.mask for g in graphs]), preds, np.stack([g.is_start for g in graphs]),
+        np.stack([g.is_end for g in graphs]), nr)
+    t = torch.from_numpy
+    width = max(g.width for g in graphs) + 2
+    ops = dict(
+        pos=t(np.stack([g.pos for g in graphs]).astype(np.int32)), mask=t(mask_u8),
+        weight=t(np.stack([g.weight for g in graphs]).astype(np.float32)),
+        predbits=t(predbits), flags=t(flags), qmask=t(qm), qlen=t(ql),
+    )
+    budget = t(np.stack([np.clip(g.max_insert, 0, 10**6) for g in graphs]).astype(np.int32))
+    return ops, budget, width, gk.pick_k_ring(maxd)
+
+
+@pytest.mark.parametrize("mode", ["simple", "weighted", "forbid", "matrix", "forbid_matrix"])
+@pytest.mark.parametrize("B,extra,M", [(1, 0, 233), (3, 37, 130), (2, 5, 2050)])
+def test_graph_dp_and_traceback_match_plain(cuda, mode, B, extra, M):
+    """Odd shapes: one query, padding nodes, M not a multiple of the
+    lanes per thread (M = 2050 also takes the 8-lane instantiation),
+    in each scoring mode."""
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    ops, budget, width, k = _graph_bucket(B * 100 + M, B, extra, M)
+    rng = np.random.default_rng(B + M)
+    cw = np.ones((B, width), np.float32)
+    if mode != "simple":
+        cw = rng.uniform(0.5, 2.0, (B, width)).astype(np.float32)
+    max_ins = budget if "forbid" in mode else None
+    subst = (torch.from_numpy(rng.uniform(-2, 2, (B, 4, 4)).astype(np.float32))
+             if "matrix" in mode else None)
+    args = [*ops.values(), torch.from_numpy(cw), max_ins, subst]
+    params = DpParams(-2.3, 1.1, 5.3, 2.1) if mode == "weighted" else DpParams()
+    before = dict(kernels.launches)
+    got = gk.graph_dp(*[a.to(cuda) if a is not None else None for a in args],
+                      params=params, k_ring=k)
+    want = gk.graph_dp_plain(*args, params=params, k_ring=k)
+    _equal(got, want)
+    emit, done = gk.graph_traceback(got[0], got[1], got[2], ops["flags"].to(cuda))
+    emit_p, done_p = gk.graph_traceback_plain(*want[:3], ops["flags"])
+    _equal([emit, done], [emit_p, done_p])
+    assert done.cpu().tolist() == [1] * B
+    assert kernels.launches["graph_dp"] == before["graph_dp"] + 1
+    assert kernels.launches["graph_traceback"] == before["graph_traceback"] + 1
+
+
+def test_graph_dp_ring_depth_does_not_change_the_result(cuda):
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    ops, _, width, k = _graph_bucket(3, 2, 4, 300)
+    args = [a.to(cuda) for a in ops.values()] + [torch.ones((2, width), device=cuda)]
+    small = gk.graph_dp(*args, params=DpParams(), k_ring=k)
+    full = gk.graph_dp(*args, params=DpParams(), k_ring=32)
+    _equal(small, full)
+
+
+def test_graph_dp_rejects_bad_operands(cuda):
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    ops, _, width, k = _graph_bucket(4, 1, 0, 64)
+    args = [a.to(cuda) for a in ops.values()] + [torch.ones((1, width), device=cuda)]
+    with pytest.raises(ValueError, match="k_ring"):
+        gk.graph_dp(*args, params=DpParams(), k_ring=12)
+    bad = list(args)
+    bad[3] = bad[3].long()
+    with pytest.raises(TypeError):
+        gk.graph_dp(*bad, params=DpParams(), k_ring=k)
+
+
+@pytest.mark.parametrize("case", ["forbid", "simple", "subst", "subst_forbid", "weighted"])
+def test_graph_dense_route_matches_cpu(cuda, case):
+    """The dense route (buckets with a predecessor 32 or more nodes
+    back) on the card equals its CPU run, the backpointer plane
+    included, on tests/test_torch_graph_dense.py's family with a
+    40-base insertion."""
+    from test_torch_graph_dense import CASES, dense_bucket, run_dense
+
+    assert case in CASES
+    c = dense_bucket()
+    got = run_dense(c, case, cuda)
+    want = run_dense(c, case, "cpu")
+    _equal(got, want)
+    assert got[5].tolist() == [1, 1, 1]

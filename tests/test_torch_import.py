@@ -78,8 +78,8 @@ def test_port_sources_never_import_jax():
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--fs-graph"],
-        ["--use-subst-matrix"],
+        ["--fs-graph", "--debug-lattice", "0:10"],
+        ["--fs-no-graph", "--insertion", "forbid"],
         ["--insertion", "forbid"],
         ["--turn"],
         ["--turn", "all"],

@@ -5,6 +5,7 @@ queries, must write byte-identical aligned FASTA (--meta-fmt comment)
 and CSV.  The one attribute allowed to differ is `aligned_slv`, the
 wall-clock time each run stamps on every aligned record."""
 
+import contextlib
 import re
 
 import numpy as np
@@ -45,9 +46,14 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_port_cli_output_is_byte_identical(case, tmp_path):
-    c = CASES[case]
+def run_both_clis(c: dict, tmp_path) -> dict[str, str]:
+    """Write case `c`'s reference and queries, run the JAX CLI and the
+    port's CLI (--device cpu) on them, each in a working directory of
+    its own, and assert the FASTA and CSV outputs are identical apart
+    from the `aligned_slv` stamps, that any other file a run wrote
+    there (the --debug-graph dumps) is identical too, and that the
+    port's records are real alignments of the queries.  Returns the
+    port's other files, by name."""
     db = testing.make_reference(**c["ref"])
     queries = testing.make_queries(db, n=c["n"], seed=7, branch_len=0.6)
     if "amplicon" in c:
@@ -65,14 +71,19 @@ def test_port_cli_output_is_byte_identical(case, tmp_path):
         "--fs-full-len", str(c["full_len"]), "--fs-req-gaps", "1",
         "--calc-idty", "--meta-fmt", "comment", *c["extra"],
     ]
-    outs = {}
+    outs, dumps = {}, {}
     for name, main, more in (
         ("jax", jax_cli.main, []),
         ("torch", torch_cli.main, ["--device", "cpu"]),
     ):
-        fa, csv = tmp_path / f"{name}.fasta", tmp_path / f"{name}.csv"
-        assert main(common + ["-o", str(fa), "-o", str(csv)] + more) == 0
+        wd = tmp_path / name
+        wd.mkdir()
+        fa, csv = wd / "out.fasta", wd / "out.csv"
+        with contextlib.chdir(wd):
+            assert main(common + ["-o", str(fa), "-o", str(csv)] + more) == 0
         outs[name] = fa, csv
+        dumps[name] = {p.name: p.read_text() for p in wd.iterdir() if p not in (fa, csv)}
+    assert dumps["jax"] == dumps["torch"]
     for jax_out, torch_out in zip(outs["jax"], outs["torch"]):
         a, b = jax_out.read_text(), torch_out.read_text()
         assert len(_STAMP.findall(a)) == c["n"]
@@ -84,3 +95,9 @@ def test_port_cli_output_is_byte_identical(case, tmp_path):
         assert rec.width == db.width
         assert rec.get_bases().upper() == q.get_bases().upper()
         assert np.all(np.diff(rec.positions.astype(np.int64)) > 0)
+    return dumps["torch"]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_cli_output_is_byte_identical(case, tmp_path):
+    run_both_clis(CASES[case], tmp_path)
