@@ -4,18 +4,25 @@
     python3 chip_smoke.py
 
 Phases, each printing a line:
-  1. environment: GPU name and power limit, torch/CUDA versions,
-     whether the native host library loaded;
-  2. build the five CUDA kernels from sina_tpu_torch/csrc;
+  1. environment: GPU name and power limit, torch/CUDA versions; fails
+     unless the port's native host library (sina_tpu_torch/native,
+     built with g++) loaded;
+  2. build the six CUDA kernels from sina_tpu_torch/csrc (one nvcc per
+     source, all started together);
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (exact), with both times; the graph DP and
+     main path's shapes (exact), with both times and the card's bound;
+     the dense int8 scorer on a (4**9+1) x 16,384 {0,1} matrix (the
+     dense layout of a 16k-reference index), also against the packed
+     kernel on the same matrix bitpacked and timed beside one
+     torch.nn.functional.embedding_bag call; the graph DP and
      its traceback on 128 family graphs of 40 references (N = 4096)
      and 128 full-length queries (M = 1536), in the simple, weighted,
      bounded-insertion (aspace) and substitution-matrix modes, and the
      dense route (no measured bucket takes it) on the same bucket;
   4. the CLI (sina_tpu_torch.cli.main --device cuda) on a small
      generated reference: the profile engine, --fs-graph, --fs-graph
-     --insertion forbid and --use-subst-matrix;
+     --insertion forbid, --use-subst-matrix, --turn, --turn all and
+     -S --lca-fields tax_slv;
   5. the profile-engine main path at scale: 100,000 references at
      width 50,000, full-length queries in batches of 128 through
      famfinder, aligner and the FASTA writer, with its kernels' launch
@@ -26,16 +33,30 @@ Phases, each printing a line:
      three batches of 128 with AlignerConfig(engine="graph"), with its
      kernels' launch counts, the GraphDP sections and buckets;
   8. the first 16 graph queries again with device="cpu": identical
-     records.
+     records;
+  9. the dense scorer's path: the k-mer scores and top-k of 128 queries
+     through kmer_kernel.score_topk on the int8 device_matrix
+     (packed=False) of the first 16,384 references, equal to the packed
+     matrix's, with its launch count;
+ 10. the turn check and search + LCA at the same scale: 64 full-length
+     queries, each given as is, reversed, complemented and reversed and
+     complemented (256 queries, 2 batches of 128), with
+     FamFinderConfig(turn="all") and a SearchFilter sharing the finder
+     (1,000 k-mer candidates, lca_fields tax_slv): every copy reports
+     the orientation it was given and yields the as-is copy's aligned
+     row, nearest_slv and lca_tax_slv;
+ 11. the first 16 of those again with device="cpu": identical records,
+     turn_slv, nearest_slv and lca_tax_slv included.
 
 The second-to-last line is the kernels' JSON record, the line before
 it the card's `nvidia-smi` name and power limit, and the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without
-that line.  Imports nothing of JAX.
+that line.  Imports nothing of JAX or of the JAX package sina_tpu.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -55,10 +76,28 @@ KMER_ROWS, KMER_SB, KMER_L, KMER_REAL = 4 ** 9 + 1, 12_544, 512, 360
 N_REFS, WIDTH, N_QUERIES = 100_000, 50_000, 640
 # graph engine: families of 40 references (N bucket 4096), 384 queries
 FAMILY, N_GRAPH, N_GRAPH_QUERIES = 40, 4096, 384
+# the dense int8 scorer: the dense layout of a 16,384-reference index
+# (4.3 GB; the 100k-reference one would be 26.3 GB, not worth its
+# host build and copy here)
+DENSE_S = 16_384
+# turn + search: 64 queries, each in the four orientations
+N_TURN = 64
+TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
+
+# the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): device
+# memory bytes/s, and float32 operations/s outside the tensor cores, the
+# rate integer adds are counted at too
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per DP cell, as the kernels' source notes count them
+PROFILE_OPS_PER_CELL = 40
+GRAPH_OPS_PER_CELL = 60
 
 KERNELS = {
     "kmer_score": ("sina_tpu_torch/csrc/kmer_score.cu",
                    "sina_tpu/ops/kmer_kernel.py:173"),
+    "kmer_score_dense": ("sina_tpu_torch/csrc/kmer_dense.cu",
+                         "sina_tpu/ops/kmer_kernel.py:56"),
     "profile_dp": ("sina_tpu_torch/csrc/profile_dp.cu",
                    "sina_tpu/ops/profile_pallas.py:42"),
     "chain_traceback": ("sina_tpu_torch/csrc/chain_traceback.cu",
@@ -84,6 +123,23 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes`
+    of device memory (each input read once, each output written once)
+    and does `nops` operations, and which of the two bounds it."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * nops / F32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` runs (CUDA events)."""
     import torch
@@ -103,12 +159,16 @@ def time_ms(fn, reps: int) -> float:
 def phase_environment() -> str:
     import torch
 
-    from sina_tpu import native
+    from sina_tpu_torch import native
 
     smi = gpu_line()
+    lib = native.get_lib()
     say(f"phase 1 environment: gpu={smi!r} torch={torch.__version__} "
-        f"cuda={torch.version.cuda} "
-        f"native_host_lib={native.get_lib() is not None}")
+        f"cuda={torch.version.cuda} native_host_lib={lib is not None}")
+    if lib is None:
+        # the pure-Python host path would change every host section
+        raise AssertionError("the port's native host library did not load "
+                             "(sina_tpu_torch/native, g++)")
     return smi
 
 
@@ -120,7 +180,11 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     usage = [ln.strip() for ln in kernels.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
-    say(f"phase 2 build: {took:.2f}s (nvcc {kernels.build_seconds}s)")
+    # "== <source> (rc 0, <s>s)": each nvcc's own time, run side by side
+    each = {m[1]: float(m[2]) for m in
+            re.finditer(r"^== (\S+) \(rc \d+, ([\d.]+)s\)$", kernels.build_log, re.M)}
+    say(f"phase 2 build: {took:.2f}s (nvcc {kernels.build_seconds}s wall; "
+        f"each process {each}, sum {sum(each.values()):.2f}s)")
     for ln in usage:
         say(f"  ptxas: {ln}")
 
@@ -191,11 +255,20 @@ def phase_kernels(dev) -> dict:
         raise AssertionError(f"kmer_score disagrees with its plain version (max |d|={err})")
     ms = time_ms(lambda: kk.kmer_scores(P, kmers), 10)
     plain_ms = time_ms(lambda: kk.kmer_scores_plain(P, kmers), 2)
-    out["kmer_score"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # the distinct rows gathered (the sink row included), the k-mer ids
+    # and the scores; one add per query, k-mer and reference
+    rows = int(torch.unique(kmers).numel())
+    b = bound(rows * KMER_SB + 4 * kmers.numel() + 4 * B_MAIN * 8 * KMER_SB,
+              B_MAIN * KMER_L * 8 * KMER_SB)
+    out["kmer_score"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         **b, "library_ms": None}
     say(f"phase 3 kmer_score: B={B_MAIN} L={KMER_L} Sb={KMER_SB} exact; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {rows} distinct rows)")
     del P, got, ref
     torch.cuda.empty_cache()
+
+    out["kmer_score_dense"] = phase_dense_kernel(dev, rng)
 
     # kernels 2 and 3: profile DP and chain traceback
     params = DpParams()
@@ -217,10 +290,16 @@ def phase_kernels(dev) -> dict:
         raise AssertionError("profile_dp with fam_idx disagrees with its plain version")
     ms = time_ms(lambda: pk.profile_dp(fg, qm, ln, params), 3)
     plain_ms = time_ms(lambda: pk.profile_dp_plain(fg, qm, ln, params), 1)
-    out["profile_dp"] = {"max_abs_err": dp_err, "ms": ms, "plain_ms": plain_ms}
+    # inputs and the whole bp plane plus the end cells; the cells each
+    # row's recurrence needs (its columns x its query length)
+    cells = int((lens[:, 0].astype(np.int64) * lens[:, 1]).sum())
+    b = bound(fgq.nbytes + qmask.nbytes + lens.nbytes + B_MAIN * C_MAIN * M_MAIN
+              + 12 * B_MAIN, PROFILE_OPS_PER_CELL * cells)
+    out["profile_dp"] = {"max_abs_err": dp_err, "ms": ms, "plain_ms": plain_ms,
+                         **b, "library_ms": None}
     say(f"phase 3 profile_dp: B={B_MAIN} C={C_MAIN} M={M_MAIN} bp/best_c/"
         f"best_i/raw exact (also with fam_idx); kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
 
     bp, bc, bi, _ = got
     emit = pk.chain_traceback(bp, bc, bi)
@@ -231,10 +310,73 @@ def phase_kernels(dev) -> dict:
     aligned = int((emit[: B_MAIN - 8] >= 0).sum(dim=1).min())
     ms = time_ms(lambda: pk.chain_traceback(bp, bc, bi), 5)
     plain_ms = time_ms(lambda: pk.chain_traceback_plain(bp, bc, bi), 1)
-    out["chain_traceback"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    b = traceback_bound(emit, 1)
+    out["chain_traceback"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              **b, "library_ms": None}
     say(f"phase 3 chain_traceback: emit exact (fewest bases emitted in a "
-        f"real row: {aligned}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"real row: {aligned}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
     return out
+
+
+def traceback_bound(emit, bp_bytes: int) -> dict:
+    """A traceback reads at least one backpointer cell for each base
+    it emits, the end cells, and writes emit: one step per cell."""
+    steps = int((emit >= 0).sum())
+    B, M = emit.shape
+    return bound(steps * bp_bytes + 8 * B + 4 * B * M, steps)
+
+
+def phase_dense_kernel(dev, rng) -> dict:
+    """The dense int8 scorer on a random {0,1} (4**9+1) x 16,384 matrix:
+    exact against its plain version and against the packed kernel on
+    the same matrix bitpacked little-endian (bit b of byte j = column
+    8j+b); timed beside one embedding_bag call over the matrix as f32
+    (its sums stay below 2**24, so f32 is exact)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sina_tpu_torch.ops import kmer_kernel as kk
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    P = torch.randint(0, 2, (KMER_ROWS, DENSE_S), dtype=torch.int8,
+                      device=dev, generator=gen)
+    P[-1] = 0
+    km = np.full((B_MAIN, KMER_L), KMER_ROWS - 1, np.int32)
+    km[:, :KMER_REAL] = rng.integers(0, KMER_ROWS - 1, (B_MAIN, KMER_REAL))
+    kmers = torch.from_numpy(km).to(dev)
+    got = kk.kmer_scores(P, kmers)
+    ref = kk.kmer_scores_dense_plain(P, kmers)
+    err = int((got - ref).abs().max())
+    if err != 0 or not torch.equal(got, ref):
+        raise AssertionError(f"kmer_score_dense disagrees with its plain version (max |d|={err})")
+    Pp = torch.zeros((KMER_ROWS, DENSE_S // 8), dtype=torch.uint8, device=dev)
+    P3 = P.view(KMER_ROWS, DENSE_S // 8, 8)
+    for j in range(8):
+        Pp |= P3[:, :, j].to(torch.uint8) << j
+    if not torch.equal(got, kk.kmer_scores(Pp, kmers)):
+        raise AssertionError("kmer_score_dense disagrees with the packed kernel "
+                             "on the bitpacked matrix")
+    del Pp, P3
+    ms = time_ms(lambda: kk.kmer_scores(P, kmers), 10)
+    plain_ms = time_ms(lambda: kk.kmer_scores_dense_plain(P, kmers), 2)
+    Pf, ids = P.float(), kmers.long()
+    lib = F.embedding_bag(ids, Pf, mode="sum")
+    if not torch.equal(lib, got.float()):
+        raise AssertionError("embedding_bag disagrees with the dense scorer")
+    library_ms = time_ms(lambda: F.embedding_bag(ids, Pf, mode="sum"), 5)
+    rows = int(torch.unique(kmers).numel())
+    b = bound(rows * DENSE_S + 4 * kmers.numel() + 4 * B_MAIN * DENSE_S,
+              B_MAIN * KMER_L * DENSE_S)
+    say(f"phase 3 kmer_score_dense: B={B_MAIN} L={KMER_L} ({KMER_REAL} real) "
+        f"S={DENSE_S}, int8 matrix {P.numel()} bytes; exact vs plain and vs the "
+        f"packed kernel; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"embedding_bag (f32) {library_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']}; {rows} distinct rows)")
+    del P, Pf, lib, got, ref
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
 
 
 def graph_bucket():
@@ -250,9 +392,9 @@ def graph_bucket():
     n_real)."""
     import torch
 
-    from sina_tpu import testing
-    from sina_tpu.ops.graph import build_graphs_batch, pad_graph
+    from sina_tpu_torch import testing
     from sina_tpu_torch.ops import graph_kernel as gk
+    from sina_tpu_torch.ops.graph import build_graphs_batch, pad_graph
 
     db = testing.make_reference_large(3000, n_core=1450, width=WIDTH, seed=1234)
     pool = testing.make_queries(db, n=4 * B_MAIN, seed=5, branch_len=0.7)
@@ -356,10 +498,22 @@ def phase_graph_kernels(dev) -> dict:
             f"(host walk) {tb_plain_ms:.3f} ms")
         if mode == "simple":
             phase_dense_route(ops, dense, cw, got, emit, params)
+            # the node and query planes, the column weights, the uint16
+            # bp plane and the end cells; the cells each query's
+            # recurrence needs (its graph's real nodes x its length)
+            cells = int((dense[4].long() * ops[6].long()).sum())
+            b = bound(sum(t.numel() * t.element_size() for t in (*ops, cw))
+                      + got[0].numel() * got[0].element_size() + 12 * B_MAIN,
+                      GRAPH_OPS_PER_CELL * cells)
             out["graph_dp"] = {"max_abs_err": float((got[3] - ref[3]).abs().max()),
-                               "ms": ms, "plain_ms": plain_ms}
+                               "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+            tb = traceback_bound(emit, 2)
             out["graph_traceback"] = {"max_abs_err": int((emit - emit_ref).abs().max()),
-                                      "ms": tb_ms, "plain_ms": tb_plain_ms}
+                                      "ms": tb_ms, "plain_ms": tb_plain_ms, **tb,
+                                      "library_ms": None}
+            say(f"phase 3 graph bounds (simple): graph_dp {b['bound_ms']:.3f} ms "
+                f"({b['bound_by']}), graph_traceback {tb['bound_ms']:.5f} ms "
+                f"({tb['bound_by']})")
         del got, ref, emit, emit_ref
         torch.cuda.empty_cache()
     return out
@@ -402,7 +556,7 @@ _STAMP = re.compile(r"aligned_slv=\d{4}-\d\d-\d\d \d\d:\d\d:\d\d")
 def fasta_text(records, path: Path) -> str:
     """The records as the FASTA writer writes them (--meta-fmt
     comment), with the wall-clock `aligned_slv` stamps masked."""
-    from sina_tpu.io.fasta import FastaWriter
+    from sina_tpu_torch.io.fasta import FastaWriter
 
     with FastaWriter(str(path), meta="comment") as w:
         for r in records:
@@ -410,32 +564,44 @@ def fasta_text(records, path: Path) -> str:
     return _STAMP.sub("aligned_slv=T", path.read_text())
 
 
-def check_records(path: Path, queries, width: int) -> int:
+def check_records(path: Path, queries, width: int, attrs=()) -> int:
     """Every written record has the reference width, strictly
-    increasing columns and exactly its query's bases; returns the
-    record count."""
-    from sina_tpu.io.fasta import read_fasta
+    increasing columns, exactly its query's bases (in the orientation
+    its turn_slv reports) and each of the attributes `attrs`; returns
+    the record count."""
+    from sina_tpu_torch.io.fasta import read_fasta
 
     by_name = {q.name: q for q in queries}
     n = 0
     for rec in read_fasta(str(path)):
-        q = by_name[rec.name]
+        q = turned(by_name[rec.name].copy(), rec.get_attr("turn_slv", ""))
         if rec.width != width:
             raise AssertionError(f"{rec.name}: width {rec.width} != {width}")
         if rec.get_bases().upper() != q.get_bases().upper():
             raise AssertionError(f"{rec.name}: query bases not preserved")
         if not np.all(np.diff(rec.positions.astype(np.int64)) > 0):
             raise AssertionError(f"{rec.name}: columns not increasing")
+        missing = [a for a in attrs if rec.get_attr(a) is None]
+        if missing:
+            raise AssertionError(f"{rec.name}: no {missing}")
         n += 1
     return n
+
+
+def turned(seq, turn_slv: str):
+    """`seq` turned as a record's `turn_slv` says the finder turned it."""
+    if turn_slv in ("reversed", "reversed and complemented"):
+        seq.reverse()
+    if turn_slv in ("complemented", "reversed and complemented"):
+        seq.complement()
+    return seq
 
 
 def phase_cli(tmp: Path) -> None:
     """The normal entry point on a small generated reference (the
     verify fixture: 150 refs, width 800, 10 queries)."""
-    from sina_tpu import testing
-    from sina_tpu.io.fasta import FastaWriter
-    from sina_tpu_torch import cli
+    from sina_tpu_torch import cli, testing
+    from sina_tpu_torch.io.fasta import FastaWriter
 
     db = testing.make_reference(n_seqs=150, n_core=500, width=800, seed=42)
     queries = [testing.unaligned_copy(q) for q in
@@ -447,8 +613,12 @@ def phase_cli(tmp: Path) -> None:
     with FastaWriter(str(qin)) as w:
         for q in queries:
             w.write(q)
-    for extra in ([], ["--fs-graph"], ["--fs-graph", "--insertion", "forbid"],
-                  ["--use-subst-matrix"]):
+    for extra, attrs in (
+            ([], ()), (["--fs-graph"], ()),
+            (["--fs-graph", "--insertion", "forbid"], ()),
+            (["--use-subst-matrix"], ()),
+            (["--turn"], ("turn_slv",)), (["--turn", "all"], ("turn_slv",)),
+            (["-S", "--lca-fields", "tax_slv"], ("nearest_slv", "lca_tax_slv"))):
         t0 = time.perf_counter()
         rc = cli.main(["-i", str(qin), "-r", str(ref), "-o", str(out),
                        "--fs-min", "10", "--fs-max", "10", "--fs-full-len",
@@ -456,7 +626,7 @@ def phase_cli(tmp: Path) -> None:
                        "--device", "cuda", "-q", *extra])
         if rc != 0:
             raise AssertionError(f"cli.main {extra} exited {rc}")
-        n = check_records(out, queries, db.width)
+        n = check_records(out, queries, db.width, attrs)
         if n != len(queries):
             raise AssertionError(f"cli {extra} wrote {n} of {len(queries)} records")
         say(f"phase 4 cli {' '.join(extra) or '(profile engine)'}: rc=0, "
@@ -464,13 +634,24 @@ def phase_cli(tmp: Path) -> None:
             f"query bases ({time.perf_counter() - t0:.2f}s)")
 
 
-def _run_batches(finder, batches, acfg, device):
+def _run_batches(finder, batches, acfg, device, searcher=None):
     """The 3-deep software pipeline of sina_tpu_torch.pipeline over
     query batches: famfinder scoring for batch N+1 is queued before
-    batch N's alignment is dispatched, batch N-1 finalizes after."""
+    batch N's alignment is dispatched, batch N-1 finalizes after (with
+    the turn check, submit_batch returns None and process_batch scores
+    eagerly).  With a searcher, each finalized batch is searched, in
+    the pipeline's `search` section."""
     from collections import deque
 
     from sina_tpu_torch.align import align_dispatch, align_finalize
+    from sina_tpu_torch.timing import get_timer
+
+    def finalize(state):
+        aligned = align_finalize(state)
+        if searcher is not None:
+            with get_timer("Pipeline").section("search"):
+                aligned = searcher.process_batch(aligned)
+        return aligned
 
     out = []
     handles = [finder.submit_batch(batches[0])]
@@ -484,9 +665,9 @@ def _run_batches(finder, batches, acfg, device):
             batch, [r.family if not r.failed else [] for r in results],
             acfg, device=device))
         if len(pending) >= 2:
-            out.extend(align_finalize(pending.popleft()))
+            out.extend(finalize(pending.popleft()))
     while pending:
-        out.extend(align_finalize(pending.popleft()))
+        out.extend(finalize(pending.popleft()))
     return out
 
 
@@ -514,11 +695,11 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
     five batches of 128 (the first one warms up)."""
     import torch
 
-    from sina_tpu import testing
-    from sina_tpu.timing import _registry, reset_all
+    from sina_tpu_torch import testing
     from sina_tpu_torch.align import AlignerConfig
     from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
     from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.timing import _registry, reset_all
 
     t0 = time.perf_counter()
     db = testing.make_reference_large(N_REFS, n_core=1450, width=WIDTH, seed=1234)
@@ -580,14 +761,21 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
 
 
 def phase_cpu_parity(finder, gpu_records, queries, tmp: Path, acfg,
-                     phase: str) -> None:
+                     phase: str, search_cfg=None) -> None:
     """The first 16 queries again with device="cpu" (the plain
-    versions): the aligned records must equal the GPU run's."""
+    versions; with `search_cfg`, searched by a SearchFilter sharing the
+    CPU finder): the aligned records must equal the GPU run's."""
     import torch
+
+    from sina_tpu_torch.search import SearchFilter
 
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    got = _run_batches(finder.on_device(cpu), [queries], acfg, cpu)
+    cpu_finder = finder.on_device(cpu)
+    searcher = None
+    if search_cfg is not None:
+        searcher = SearchFilter(cpu_finder.db, search_cfg, cpu_finder)
+    got = _run_batches(cpu_finder, [queries], acfg, cpu, searcher)
     a = fasta_text(gpu_records, tmp / "gpu16.fasta")
     b = fasta_text(got, tmp / "cpu16.fasta")
     if a != b:
@@ -603,10 +791,10 @@ def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
     famfinder."""
     import torch
 
-    from sina_tpu import testing
-    from sina_tpu.timing import _registry, get_timer, reset_all
+    from sina_tpu_torch import testing
     from sina_tpu_torch.align import AlignerConfig
     from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.timing import _registry, get_timer, reset_all
 
     queries = [testing.unaligned_copy(q) for q in
                testing.make_queries(db, n=N_GRAPH_QUERIES, seed=11, branch_len=0.7)]
@@ -657,6 +845,155 @@ def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
     return launches, aligned[:16], pristine
 
 
+def phase_dense_path(dev, db) -> int:
+    """The dense scorer's path, the op dispatch through which the JAX
+    package reaches its dense kernel: famfinder's scoring + top-k
+    (kmer_kernel.score_topk, k = 256) of 128 queries on the int8
+    device_matrix(packed=False) of the first 16,384 references, equal
+    to the packed matrix's.  Returns the dense kernel's launches."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.ops import kmer_kernel as kk
+    from sina_tpu_torch.ops.kmer import query_kmers_padded
+    from sina_tpu_torch.ops.kmer_index import KmerIndex, device_matrix
+    from sina_tpu_torch.refdb import ReferenceDb
+
+    t0 = time.perf_counter()
+    sub = ReferenceDb([s.copy() for s in db.sequences[:DENSE_S]], db.width)
+    idx = KmerIndex.build(sub, k=10, fast=True)
+    P8 = device_matrix(idx, dev, packed=False)
+    Pp = device_matrix(idx, dev)
+    queries = testing.make_queries(sub, n=B_MAIN, seed=17, branch_len=0.7)
+    kmers, _ = query_kmers_padded([testing.unaligned_copy(q).masks for q in queries],
+                                  idx.k, fast=idx.fast)
+    km = torch.from_numpy(kmers).to(dev)
+    sync(dev)
+    t_setup = time.perf_counter() - t0
+    kernels.reset_launches()
+    got = kk.score_topk(P8, km, 256)
+    sync(dev)
+    launches = kernels.launches["kmer_score_dense"]
+    want = kk.score_topk(Pp, km, 256)
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError("dense path: top-k differs from the packed matrix's")
+    if launches == 0:
+        raise AssertionError("dense path: kmer_score_dense never launched")
+    say(f"phase 9 dense path: {DENSE_S} references, int8 matrix "
+        f"{tuple(P8.shape)} on the card (set-up {t_setup:.1f}s); {B_MAIN} "
+        f"queries (L={kmers.shape[1]}) scored and top-256 equal to the packed "
+        f"matrix's; kmer_score_dense launches {launches}")
+    del P8, Pp
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def orientations(base) -> list:
+    """Each query as is, reversed, complemented, and reversed and
+    complemented, named <name>~<k>, in that order."""
+    out = []
+    for q in base:
+        for k in range(4):
+            c = turned(q.copy(), TURN_NAMES[k])
+            c.name = f"{q.name}~{k}"
+            out.append(c)
+    return out
+
+
+def phase_turn_search(dev, finder, db):
+    """The turn check and search + LCA at the main path's scale: 64
+    queries in four orientations each, two batches of 128, with
+    FamFinderConfig(turn="all") on the shared index and a SearchFilter
+    sharing that finder."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.search import SearchConfig, SearchFilter
+    from sina_tpu_torch.timing import _registry, reset_all
+
+    base = [testing.unaligned_copy(q) for q in
+            testing.make_queries(db, n=N_TURN, seed=13, branch_len=0.7)]
+    given = orientations(base)
+    pristine = [q.copy() for q in given]
+    tf = finder.on_device(dev)
+    tf.cfg = dataclasses.replace(finder.cfg, turn="all")
+    scfg = SearchConfig(kmer_candidates=1000, max_result=10, min_sim=0.7,
+                        lca_fields=["tax_slv"])
+    searcher = SearchFilter(db, scfg, tf)
+    if searcher.finder is not tf:
+        raise AssertionError("the search did not share the finder")
+    batches = [given[i:i + B_MAIN] for i in range(0, len(given), B_MAIN)]
+    kernels.reset_launches()
+    reset_all()
+    sync(dev)
+    t0 = time.perf_counter()
+    out = _run_batches(tf, batches, AlignerConfig(), dev, searcher)
+    sync(dev)
+    took = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name, t in _registry.items():
+        say(f"  timings {name}: {t}")
+    misses = []
+    for g in range(N_TURN):
+        recs = out[4 * g:4 * g + 4]
+        asis = recs[0]
+        for k, r in enumerate(recs):
+            bad = []
+            if r is None:
+                bad.append("not aligned")
+            else:
+                if r.get_attr("turn_slv") != TURN_NAMES[k]:
+                    bad.append(f"turn_slv {r.get_attr('turn_slv')!r}")
+                if asis is not None and not (
+                        np.array_equal(r.positions, asis.positions)
+                        and np.array_equal(r.masks, asis.masks)):
+                    bad.append("aligned row differs from the as-is copy's")
+                for a in ("nearest_slv", "lca_tax_slv"):
+                    if asis is not None and r.get_attr(a) != asis.get_attr(a):
+                        bad.append(f"{a} differs from the as-is copy's")
+            if bad:
+                misses.append((g, k, bad))
+    if misses:
+        for g, k, bad in misses:
+            vals, _ = tf.score_topk([q.masks for q in pristine[4 * g:4 * g + 4]], 1)
+            say(f"phase 10 miss: {pristine[4 * g + k].name} ({TURN_NAMES[k]}): "
+                f"{'; '.join(bad)}; top-1 k-mer score as is / reversed / "
+                f"complemented / reversed and complemented: {vals[:, 0].tolist()}")
+        raise AssertionError(f"turn + search: {len(misses)} of {len(given)} copies missed")
+    sections = {n: dict(_registry[n].sections) for n in ("Kmer Search", "Pipeline")
+                if n in _registry}
+    if "search" not in sections.get("Pipeline", {}) or not sections.get("Kmer Search"):
+        raise AssertionError(f"turn + search: sections missing ({sections})")
+    missing = [k for k in PROFILE_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the turn + search path: {missing}")
+    classified = sum(r.get_attr("lca_tax_slv") != "Unclassified;" for r in out)
+    say(f"phase 10 turn + search: {len(given)} queries ({N_TURN} x 4 "
+        f"orientations) in {took:.3f}s = {len(given) / took:.2f} seq/s on "
+        f"{gpu_line()}; every copy reported its orientation and the as-is "
+        f"copy's row, nearest_slv and lca_tax_slv; {classified} classified "
+        f"below the root; launches {launches}")
+    # the same queries again (fresh copies: the finder turned the first
+    # ones in place), profiled, for the device's share
+    again = [q.copy() for q in pristine]
+    busy, wall, per = device_busy(lambda: _run_batches(
+        tf, [again[i:i + B_MAIN] for i in range(0, len(again), B_MAIN)],
+        AlignerConfig(), dev, searcher))
+    if busy > 0:
+        say(f"phase 10 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
+        for ms, name in per[:8]:
+            say(f"  device {ms:9.3f} ms  {name[:90]}")
+    else:
+        say("phase 10 device busy: not measured (the profiler recorded "
+            "no device activity)")
+    return out[:16], pristine[:16], tf, scfg
+
+
 def main() -> int:
     import torch
 
@@ -680,8 +1017,13 @@ def main() -> int:
         glaunches, ggpu16, gqueries16 = phase_graph_path(dev, tmp, finder, db)
         phase_cpu_parity(finder, ggpu16, gqueries16, tmp,
                          AlignerConfig(engine="graph"), "phase 8")
+        dense_launches = phase_dense_path(dev, db)
+        tgpu16, tqueries16, tfinder, scfg = phase_turn_search(dev, finder, db)
+        phase_cpu_parity(tfinder, tgpu16, tqueries16, tmp, AlignerConfig(),
+                         "phase 11", scfg)
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
+    launches["kmer_score_dense"] = dense_launches
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timing[name]}

@@ -20,13 +20,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sina_tpu import alphabet
-from sina_tpu.cache import IdentityCache
-from sina_tpu.comparator import Comparator, IUPAC_OPTIMISTIC, COVER_OVERLAP
-from sina_tpu.sequence import Sequence
-from sina_tpu.timing import get_timer
+from . import alphabet
+from .cache import IdentityCache
+from .comparator import Comparator, IUPAC_OPTIMISTIC, COVER_OVERLAP
+from .sequence import Sequence
+from .timing import get_timer
 
-from sina_tpu.ops.graph import LinearGraph
+from .ops.graph import LinearGraph
 
 from .ops import align_kernel as ak
 from .ops import kernels
@@ -45,7 +45,7 @@ INSERTION_FORBID = "forbid"
 INSERTION_REMOVE = "remove"
 
 # attribute names follow the reference's field contract
-# (/root/reference/src/query_arb.cpp:107-126, doc/source/fields.rst)
+# (SINA src/query_arb.cpp:107-126, doc/source/fields.rst)
 FN_DATE = "aligned_slv"
 FN_QUAL = "align_quality_slv"
 FN_HEAD = "align_cutoff_head_slv"
@@ -141,7 +141,7 @@ def _containment_batch(queries, families):
     Returns {query_idx: int64 offsets array (one per family member,
     -1 = not contained)} or None when the caller must use the string
     path (no native lib / members not in one flat store)."""
-    from sina_tpu import native
+    from . import native
 
     if native.get_lib() is None:
         return None
@@ -343,7 +343,7 @@ def _count_cols_batch(
     bucketing input).  One native pass over the shared flat base
     store when every member carries a `_flat_ref` stamp; per-family
     numpy unique otherwise."""
-    from sina_tpu import native
+    from . import native
 
     seqs = [r for refs in fam_refs for r in refs]
     fr = _flat_ranges(seqs)
@@ -402,7 +402,7 @@ def _count_cols_range_batch(
     """Exact occupied-column count per family inside raw-column
     window [lo, hi) (one native pass over the shared flat store, as
     _count_cols_batch); None when no shared store / native lib."""
-    from sina_tpu import native
+    from . import native
 
     seqs = [r for refs in fam_refs for r in refs]
     fr = _flat_ranges(seqs)
@@ -424,8 +424,8 @@ def _trim_windows_native(cand, pend) -> list:
     place of a per-query python loop).  Appends [item, lo, hi, est, True] rows
     to `pend` and returns the items the caller must still anchor in
     python (no flat store / native lib unavailable)."""
-    from sina_tpu import native
-    from sina_tpu.ops.colspan import _K, RefAnchorTable
+    from . import native
+    from .ops.colspan import _K, RefAnchorTable
 
     if native.get_lib() is None:
         return cand
@@ -503,7 +503,7 @@ def _trim_windows(todo, min_cols: int = 0) -> None:
     (the dispatcher converts it to family occupied-column ranks once
     the profile build has handed it the family's columns); item[9]
     keeps the family's full column count."""
-    from sina_tpu.ops.colspan import SNAP_GRID, RefAnchorTable, query_window
+    from .ops.colspan import SNAP_GRID, RefAnchorTable, query_window
 
     fam_cols_cache: dict[tuple, np.ndarray] = {}
     # candidate items past the cheap gates: narrow lattices aren't
@@ -665,7 +665,7 @@ def align_dispatch(
     _tcopy.__exit__(None, None, None)
 
     if todo and engine == "graph":
-        from sina_tpu.ops.graph import build_graphs_batch
+        from .ops.graph import build_graphs_batch
 
         pending = [it for it in todo if it[2] is None]
         if pending:
@@ -684,7 +684,7 @@ def align_dispatch(
                 it[2] = graph_cache[tuple(id(r) for r in it[4])]
                 it[6] = it[2].n_nodes
         if cfg.debug_graph:
-            from sina_tpu.ops.graph import graph_to_dot
+            from .ops.graph import graph_to_dot
 
             for it in todo:
                 # reference naming: mseq_<name>.dot (align.cpp:511-513)
@@ -864,7 +864,7 @@ def _dispatch_graph_bucket(
         # family base frequencies at the family's top identity
         # (align.cpp:417-427; the reference's own matrix generator is
         # disabled upstream — see stats.subst_matrix)
-        from sina_tpu.stats import family_base_freqs, subst_matrix
+        from .stats import family_base_freqs, subst_matrix
 
         subst = np.stack(
             [
@@ -1134,7 +1134,7 @@ def _dispatch_profile_bucket(
     # (snapped to the shared SNAP_GRID so repeated queries dedup —
     # the grid size is included in _trim_windows' size estimate),
     # then unique (family, start) pairs become the device rows
-    from sina_tpu.ops.colspan import SNAP_GRID
+    from .ops.colspan import SNAP_GRID
 
     rkeys: dict[tuple, int] = {}
     row_fam: list[int] = []

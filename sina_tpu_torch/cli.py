@@ -17,6 +17,7 @@ from . import __version__
 from .align import AlignerConfig
 from .famfinder import FamFinderConfig
 from .pipeline import Pipeline, PipelineConfig
+from .search import SearchConfig
 
 
 def _engine(args) -> str:
@@ -33,8 +34,6 @@ UNPORTED = (
     # forbid mode runs on the graph engine only
     (lambda a: a.insertion == "forbid" and _engine(a) == "profile",
      "--insertion forbid"),
-    (lambda a: a.turn != "none", "--turn"),
-    (lambda a: a.search, "-S/--search"),
     (lambda a: a.multihost, "--multihost"),
     (lambda a: bool(a.debug_lattice), "--debug-lattice"),
     (lambda a: bool(a.jax_profile_dir), "--jax-profile-dir"),
@@ -90,15 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "(.sref bundle or aligned fasta)")
     p.add_argument("-t", "--turn", nargs="?", const="revcomp",
                    default="none", choices=["none", "revcomp", "all"],
-                   help="orientation check (not ported: use python -m "
-                   "sina_tpu)")
+                   help="check/fix read orientation")
     p.add_argument("-P", "--prealigned", action="store_true",
                    help="skip alignment stage")
     p.add_argument("--no-align", action="store_true",
                    help="disable alignment stage (same as prealigned)")
     p.add_argument("-S", "--search", action="store_true",
-                   help="enable search stage (not ported: use python -m "
-                   "sina_tpu)")
+                   help="enable search stage")
     p.add_argument("--add-relatives", type=int, default=0)
     p.add_argument("-f", "--fields", default="")
     p.add_argument("--min-idty", type=float, default=0.0)
@@ -373,6 +370,7 @@ def config_from_args(args) -> PipelineConfig:
 
     prealigned = args.prealigned or args.no_align
     fam = FamFinderConfig(
+        turn=args.turn,
         fs_kmer_len=args.fs_kmer_len,
         fs_no_fast=args.fs_kmer_no_fast,
         fs_min=args.fs_min,
@@ -412,11 +410,29 @@ def config_from_args(args) -> PipelineConfig:
         col_trim=not args.no_col_trim,
         col_trim_min_cols=args.col_trim_min_cols,
     )
+    srch = SearchConfig(
+        min_sim=args.search_min_sim,
+        max_result=args.search_max_result,
+        kmer_candidates=args.search_kmer_candidates,
+        search_all=args.search_all,
+        ignore_super=args.search_ignore_super,
+        lca_fields=_split_fields(args.lca_fields),
+        lca_quorum=args.lca_quorum,
+        copy_fields=_split_fields(args.search_copy_fields),
+        kmer_len=args.search_kmer_len,
+        no_fast=args.search_no_fast,
+        iupac=args.search_iupac,
+        correction=args.search_correction,
+        cover=args.search_cover,
+        filter_lowercase=args.search_filter_lowercase,
+    )
     return PipelineConfig(
         in_path=args.in_path,
         outputs=outputs,
         db=args.db,
+        search_db=args.search_db or None,
         prealigned=prealigned,
+        do_search=args.search,
         add_relatives=args.add_relatives,
         fields=_split_fields(args.fields),
         batch_size=args.batch_size,
@@ -425,6 +441,7 @@ def config_from_args(args) -> PipelineConfig:
         orig_db=args.orig_db or None,
         famfinder=fam,
         aligner=ali,
+        search=srch,
         meta_fmt=args.meta_fmt,
         line_length=args.line_length,
         out_dots=args.fasta_write_dots,
@@ -444,7 +461,7 @@ def config_from_args(args) -> PipelineConfig:
 
 
 def setup_logging(verbose: int, quiet: int, log_file: str = "") -> None:
-    from sina_tpu.progress import attach_terminal_sink
+    from .progress import attach_terminal_sink
 
     level = logging.WARNING + 10 * quiet - 10 * verbose
     handlers = [attach_terminal_sink(logging.StreamHandler(sys.stderr))]
@@ -488,7 +505,7 @@ def main(argv: list[str] | None = None) -> int:
     log.warning("This is sina-tpu %s (torch port).", __version__)
     if args.arb_list_fields:
         # list the bundle's metadata fields (rw_arb.cpp:120-156)
-        from sina_tpu.refdb import ReferenceDb
+        from .refdb import ReferenceDb
 
         path = args.db or args.in_path
         if not path or path == "-":
@@ -506,7 +523,7 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.build_refdb:
         # arb2fasta-style aligned FASTA (+ metadata CSV) -> .sref bundle
-        from sina_tpu.refdb import ReferenceDb
+        from .refdb import ReferenceDb
 
         if not args.in_path or args.in_path == "-":
             print("--build-refdb needs an input FASTA (-i)",
@@ -548,6 +565,7 @@ def main(argv: list[str] | None = None) -> int:
         dump("pipeline", cfg)
         dump("famfinder", cfg.famfinder)
         dump("aligner", cfg.aligner)
+        dump("search", cfg.search)
     try:
         pipe = Pipeline(cfg)
     except (ValueError, FileNotFoundError, RuntimeError) as e:

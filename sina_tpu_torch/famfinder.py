@@ -1,11 +1,11 @@
 """Reference (family) selection stage.
 
-Port of sina_tpu/famfinder.py: constraint-driven family selection with
-escalating retry, gap-count filtering and alignment-stats selection.
-Scoring and top-k run batched on the torch device
-(ops/kmer_kernel); the policy layer is host-side python over small
-top-k lists, copied from the reference without change.  Not ported:
-the turn check (--turn) and the multi-device mesh branch.
+Port of sina_tpu/famfinder.py: orientation ("turn") check via 4-way
+index probing, constraint-driven family selection with escalating
+retry, gap-count filtering and alignment-stats selection.  Scoring and
+top-k run batched on the torch device (ops/kmer_kernel); the policy
+layer is host-side python over small top-k lists, copied from the
+reference without change.  Not ported: the multi-device mesh branch.
 """
 
 from __future__ import annotations
@@ -17,20 +17,52 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from sina_tpu.comparator import Comparator, IUPAC_OPTIMISTIC, COVER_QUERY
-from sina_tpu.ops.kmer import query_kmers_padded
-from sina_tpu.ops.kmer_index import KmerIndex
-from sina_tpu.refdb import ReferenceDb
-from sina_tpu.sequence import Sequence
-from sina_tpu.timing import get_timer
-
-from .ops.kmer_index import device_matrix
+from .comparator import Comparator, IUPAC_OPTIMISTIC, COVER_QUERY
+from .ops.kmer import query_kmers_padded
+from .ops.kmer_index import KmerIndex, device_matrix
+from .refdb import ReferenceDb
+from .sequence import Sequence
+from .timing import get_timer
 from .ops.kmer_kernel import kmer_scores, score_topk as _score_topk_device
 from .ops.profile import _bucket_rows
 
 logger = logging.getLogger("sina.famfinder")
 
 TURN_NONE = "none"
+TURN_REVCOMP = "revcomp"
+TURN_ALL = "all"
+# turn_slv by orientation: 0 as is, 1 reversed, 2 complemented, 3 both
+TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
+
+
+def _orientations(query: Sequence, all4: bool) -> list[np.ndarray]:
+    """The query's masks in the orientations the turn check scores, in
+    the reference's order: as is and reversed and complemented, or all
+    four (famfinder.cpp:344-378)."""
+    out = [query.masks]
+    if all4:
+        out += [query.copy().reverse().masks, query.copy().complement().masks]
+    out.append(query.copy().reverse().complement().masks)
+    return out
+
+
+def _pick_orientation(tops, all4: bool) -> int:
+    """The orientation (0-3) whose top-1 score is highest: a strict `>`
+    in the reference's order, so a tie keeps the earlier one."""
+    best, best_score = 0, 0.0
+    for top, oi in zip(tops, (0, 1, 2, 3) if all4 else (0, 3)):
+        if top > best_score:
+            best_score, best = float(top), oi
+    return best
+
+
+def _turn(query: Sequence, which: int) -> None:
+    """Record orientation `which` in turn_slv and turn the query to it."""
+    query.set_attr("turn_slv", TURN_NAMES[which])
+    if which in (1, 3):
+        query.reverse()
+    if which in (2, 3):
+        query.complement()
 
 
 @dataclass
@@ -70,11 +102,6 @@ class FamFinder:
                  device: torch.device | str = "cuda"):
         self.db = db
         self.cfg = cfg or FamFinderConfig()
-        if self.cfg.turn != TURN_NONE:
-            raise NotImplementedError(
-                "the turn check is not ported to sina_tpu_torch yet; "
-                "use the JAX package (python -m sina_tpu --turn)"
-            )
         self.device = torch.device(device)
         db.ensure_flat()  # batch profile build gathers flat arrays
         self.index = KmerIndex.build(
@@ -84,10 +111,12 @@ class FamFinder:
 
     def on_device(self, device: torch.device | str) -> "FamFinder":
         """A finder on `device` that shares this one's database and
-        k-mer index (the index build is the expensive part of set-up)."""
+        k-mer index (the index build is the expensive part of set-up),
+        and its device matrix when `device` is its own."""
         other = copy.copy(self)
         other.device = torch.device(device)
-        other._P = None
+        if other.device != self.device:
+            other._P = None
         return other
 
     # -- device scoring ----------------------------------------------
@@ -272,6 +301,14 @@ class FamFinder:
             and self.cfg.fs_msc_max >= 1.0
         )
 
+    def find(
+        self, query: Sequence, max_results: int
+    ) -> list[tuple[float, int]]:
+        """Ranked [(score, seq_id)] for one query
+        (kmer_search.cpp:366-420)."""
+        scores = self.score_batch([query.masks])[0]
+        return self._rank(scores, max_results)
+
     def _rank(self, scores: np.ndarray, max_results: int):
         max_results = min(max_results, len(scores))
         # descending score; reference breaks ties by higher id
@@ -279,6 +316,21 @@ class FamFinder:
         order = np.lexsort((-np.arange(len(scores)), -scores))
         top = order[:max_results]
         return [(float(scores[i]), int(i)) for i in top]
+
+    # -- turn check ---------------------------------------------------
+
+    def turn_check(self, query: Sequence, all4: bool) -> int:
+        """0=asis 1=reversed 2=complemented 3=revcomp
+        (famfinder.cpp:344-378)."""
+        scores = self.score_batch(_orientations(query, all4))
+        return _pick_orientation(scores.max(axis=1), all4)
+
+    def apply_turn(self, query: Sequence) -> Sequence:
+        if self.cfg.turn == TURN_NONE:
+            query.set_attr("turn_slv", "turn-check disabled")
+        else:
+            _turn(query, self.turn_check(query, self.cfg.turn == TURN_ALL))
+        return query
 
     # -- family selection policy --------------------------------------
 
@@ -400,7 +452,7 @@ class FamFinder:
     ) -> tuple[str, np.ndarray | None, list[str]]:
         """Filter/quorum-vote alignment-stats selection
         (famfinder.cpp:381-436).  Returns (name, weights, log)."""
-        from sina_tpu.stats import compute_weights
+        from .stats import compute_weights
 
         cfg = self.cfg
         log: list[str] = []
@@ -466,8 +518,8 @@ class FamFinder:
         overlap it with other work; pass the handle to
         process_batch(queries, handle=...)."""
         cfg = self.cfg
-        if not queries:
-            return None
+        if not queries or cfg.turn != TURN_NONE:
+            return None  # turn path fetches eagerly
         t = get_timer("Kmer Search")
         with t.section("extract kmers"):
             uniq, inv = self._dedupe_masks([q.masks for q in queries])
@@ -515,20 +567,52 @@ class FamFinder:
                     )
                 self._finish_escalated(queries, out)
             return out
-        for q in queries:
-            q.set_attr("turn_slv", "turn-check disabled")
-        mask_list, inv = self._dedupe_masks([q.masks for q in queries])
+        inv = None
+        all4 = cfg.turn == TURN_ALL
+        if cfg.turn == TURN_NONE:
+            for q in queries:
+                q.set_attr("turn_slv", "turn-check disabled")
+            variants_per = 1
+            mask_list, inv = self._dedupe_masks(
+                [q.masks for q in queries]
+            )
+        else:
+            # every orientation of every query in one scoring call
+            variants_per = 4 if all4 else 2
+            mask_list = [m for q in queries for m in _orientations(q, all4)]
         k0 = min(
             max(4 * cfg.fs_max + 16, 256), self.index.n_seqs
         )
         vals, ids = self.score_topk(mask_list, k0)
-        out: list[FamilyResult | None] = [
-            self._finish(
-                q, ranked_np=(vals[int(inv[b])], ids[int(inv[b])]),
+
+        out: list[FamilyResult | None] = [None] * B
+        reoriented: list[tuple[int, Sequence]] = []
+        for b, q in enumerate(queries):
+            row = int(inv[b]) if inv is not None else b * variants_per
+            if cfg.turn != TURN_NONE:
+                best = _pick_orientation(
+                    vals[row : row + variants_per, 0], all4
+                )
+                _turn(q, best)
+                if best != 0:
+                    # orientation changed: rescore, batched with the
+                    # other reoriented queries below (one device call
+                    # for all of them)
+                    reoriented.append((b, q))
+                    continue
+            out[b] = self._finish(
+                q, ranked_np=(vals[row], ids[row]),
                 allow_refetch=False,
             )
-            for b, q in enumerate(queries)
-        ]
+        if reoriented:
+            v1, i1 = self.score_topk(
+                [q.masks for _, q in reoriented], k0
+            )
+            for row, (b, q) in enumerate(reoriented):
+                out[b] = self._finish(
+                    q, ranked_np=(v1[row], i1[row]),
+                    allow_refetch=False,
+                )
         self._finish_escalated(queries, out)
         return out
 
@@ -564,6 +648,10 @@ class FamFinder:
             if k >= n:
                 break
             k = min(k * 10, n)
+
+    def __call__(self, query: Sequence) -> FamilyResult:
+        self.apply_turn(query)
+        return self._finish(query)
 
     def _finish(
         self,

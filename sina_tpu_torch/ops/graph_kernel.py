@@ -70,7 +70,7 @@ def pack_graph_host(mask, preds, is_start, is_end, n_real):
     start/end/real fold into one (B, N) uint8 flag plane (bit 0 start,
     bit 1 end, bit 2 real node).  Uses the native packer, or numpy
     when it is unavailable.  Returns (mask uint8, predbits, flags)."""
-    from sina_tpu import native
+    from .. import native
 
     mask = np.asarray(mask)
     preds = np.asarray(preds)

@@ -3,8 +3,9 @@
 The kernels compile with nvcc into one shared library with a
 plain C interface (no PyTorch headers: a build takes seconds, not
 minutes) at first use, into the git-ignored ``sina_tpu_torch/_build``
-directory; the file name carries a hash of the sources and flags, so
-an edited source rebuilds.  The library is loaded with ctypes.
+directory: one nvcc process for each source, all started together
+(the build log gives each one's seconds), then one link.  The file name carries a hash of the sources and flags,
+so an edited source rebuilds.  The library is loaded with ctypes.
 
 Every wrapper that launches a kernel adds one to its entry of
 ``launches`` right after the launch, and nowhere else, so a run can
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -26,17 +28,18 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("kmer_score.cu", "profile_dp.cu", "chain_traceback.cu",
-           "graph_dp.cu", "graph_traceback.cu")
+SOURCES = ("kmer_score.cu", "kmer_dense.cu", "profile_dp.cu",
+           "chain_traceback.cu", "graph_dp.cu", "graph_traceback.cu")
 # --fmad=false: the DPs must keep the reference's f32 rounding (no
 # mul+add contraction to FMA other than the ones written out) to stay
 # bit-equal to their plain versions
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"kmer_score": 0, "profile_dp": 0, "chain_traceback": 0,
+launches = {"kmer_score": 0, "kmer_score_dense": 0,
+            "profile_dp": 0, "chain_traceback": 0,
             "graph_dp": 0, "graph_traceback": 0,
             # not a kernel: graph buckets that took the dense route
             # (ops/align_kernel.poa_dp_dense), counted where chosen
@@ -73,6 +76,12 @@ def _lib_path() -> Path:
     return BUILD_DIR / f"libsina_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _timed(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    return res, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the current sources
     exists; returns its path.  Raises on a failed build."""
@@ -81,17 +90,28 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / n) for n in SOURCES)]
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}"  # concurrent builds
+    objs = [f"{tmp}.{Path(n).stem}.o" for n in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        runs = list(pool.map(_timed, [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / n)]
+            for n, o in zip(SOURCES, objs)]))
+    names = list(SOURCES)
+    if all(r.returncode == 0 for r, _ in runs):
+        runs.append(_timed([nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objs]))
+        names.append("link")
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
+    build_log = "".join(f"== {n} (rc {r.returncode}, {s:.2f}s)\n{r.stdout}{r.stderr}"
+                        for n, (r, s) in zip(names, runs))
     (BUILD_DIR / "nvcc.log").write_text(build_log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    for o in objs:
+        Path(o).unlink(missing_ok=True)
+    failed = [n for n, (r, _) in zip(names, runs) if r.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
+    os.replace(f"{tmp}.so", so)
     return so
 
 
@@ -104,6 +124,8 @@ def lib() -> ctypes.CDLL:
         F = ctypes.c_float
         so.sina_kmer_score.argtypes = [P, P, P, LL, LL, I, I, P]
         so.sina_kmer_score.restype = I
+        so.sina_kmer_score_dense.argtypes = [P, P, P, LL, LL, I, I, P]
+        so.sina_kmer_score_dense.restype = I
         so.sina_profile_dp.argtypes = [
             P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F, P,
         ]

@@ -1,15 +1,20 @@
-"""Batched bitpacked k-mer scoring and exact top-k.
+"""Batched k-mer scoring and exact top-k.
 
-S[b, 8*j + bit] = sum_l bit_(bit)(P[kmers[b, l], j]), P the (R+1, Sb)
-uint8 incidence matrix of KmerIndex.dense_packed (bit b of byte j =
-reference 8j+b); padding k-mers point at its all-zero last row.
+S[b, s] = sum_l P[kmers[b, l], s] over one of two layouts of the
+incidence matrix; padding k-mers point at its all-zero last row.
 
-``kmer_scores`` launches the CUDA kernel csrc/kmer_score.cu for a CUDA
-tensor (the port of sina_tpu/ops/kmer_kernel.py _pallas_kernel_packed
-and _pallas_kernel_tiled) and runs the plain version
-``kmer_scores_plain`` for a CPU tensor.  The tiled (R, 32, W) layout
-holds the same bytes in the same order, so it is scored as its
-(R, 32*W) view.
+- Bitpacked: P the (R+1, Sb) uint8 matrix of KmerIndex.dense_packed
+  (bit b of byte j = reference 8j+b), S = 8*Sb.  A CUDA tensor launches
+  csrc/kmer_score.cu (the port of sina_tpu/ops/kmer_kernel.py
+  _pallas_kernel_packed and _pallas_kernel_tiled); a CPU tensor runs
+  ``kmer_scores_plain``.  The tiled (R, 32, W) layout holds the same
+  bytes in the same order, so it is scored as its (R, 32*W) view.
+- Dense: P the (R+1, S) int8 matrix of KmerIndex.dense.  A CUDA tensor
+  launches csrc/kmer_dense.cu (the port of _pallas_kernel); a CPU
+  tensor runs ``kmer_scores_dense_plain``.
+
+``kmer_scores`` dispatches on the matrix's dtype, as the JAX package's
+does (sina_tpu/ops/kmer_kernel.py:371-393).
 """
 
 from __future__ import annotations
@@ -18,6 +23,10 @@ import torch
 
 from . import kernels
 
+# k-mers gathered at a time by the plain versions (bounds the (B, c, S)
+# gather's memory)
+_CHUNK = 32
+
 
 def _flat(P: torch.Tensor) -> torch.Tensor:
     # tiled (R, 32, W) == flat (R, 32*W) in logical byte order
@@ -25,8 +34,7 @@ def _flat(P: torch.Tensor) -> torch.Tensor:
     return P.reshape(P.shape[0], -1) if P.dim() == 3 else P
 
 
-def kmer_scores_plain(P: torch.Tensor, kmers: torch.Tensor,
-                      chunk: int = 32) -> torch.Tensor:
+def kmer_scores_plain(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: chunked row gather + bit-unpack sum.
     P (R+1, Sb) uint8 (or tiled), kmers (B, L) int32 -> (B, 8*Sb)
     int32.  Ids outside [0, R] (famfinder makes none) clamp into the
@@ -37,16 +45,32 @@ def kmer_scores_plain(P: torch.Tensor, kmers: torch.Tensor,
     ids = kmers.long().clamp(0, P.shape[0] - 1)
     shifts = torch.arange(8, device=P.device, dtype=torch.uint8)
     acc = torch.zeros((B, Sb, 8), dtype=torch.int32, device=P.device)
-    for l0 in range(0, L, chunk):
-        rows = P[ids[:, l0:l0 + chunk]]                  # (B, c, Sb)
+    for l0 in range(0, L, _CHUNK):
+        rows = P[ids[:, l0:l0 + _CHUNK]]                  # (B, c, Sb)
         bits = (rows.unsqueeze(-1) >> shifts) & 1        # (B, c, Sb, 8)
         acc += bits.sum(dim=1, dtype=torch.int32)
     return acc.reshape(B, Sb * 8)
 
 
+def kmer_scores_dense_plain(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the dense scorer: chunked row gather,
+    summed in int32.  P (R+1, S) int8, kmers (B, L) int32 -> (B, S)
+    int32.  Ids outside [0, R] (famfinder makes none) clamp into the
+    matrix, as the kernel clamps them."""
+    B, L = kmers.shape
+    ids = kmers.long().clamp(0, P.shape[0] - 1)
+    acc = torch.zeros((B, P.shape[1]), dtype=torch.int32, device=P.device)
+    for l0 in range(0, L, _CHUNK):
+        acc += P[ids[:, l0:l0 + _CHUNK]].sum(dim=1, dtype=torch.int32)
+    return acc
+
+
 def kmer_scores(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
-    """Scores (B, 8*Sb) int32.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (or raise)."""
+    """Scores (B, S) int32: a uint8 matrix (flat or tiled) is bitpacked,
+    any other is dense.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    if P.dtype != torch.uint8:
+        return _kmer_scores_dense(P, kmers)
     P = _flat(P)
     if P.device.type == "cpu":
         return kmer_scores_plain(P, kmers)
@@ -64,6 +88,28 @@ def kmer_scores(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
     )
     kernels.check(err, "kmer_score")
     kernels.launches["kmer_score"] += 1
+    return out
+
+
+def _kmer_scores_dense(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
+    if P.device.type == "cpu":
+        return kmer_scores_dense_plain(P, kmers)
+    dev = P.device
+    kernels.require_cuda("P", P, torch.int8, dev, 2)
+    kernels.require_cuda("kmers", kmers, torch.int32, dev, 2)
+    R, S = P.shape
+    B, L = kmers.shape
+    # 16-byte loads: every row must start on a 16-byte boundary
+    # (KmerIndex.dense pads S to a multiple of 128)
+    if S % 16 or P.data_ptr() % 16:
+        raise ValueError("P rows must be a multiple of 16 bytes, 16-byte aligned")
+    out = torch.empty((B, S), dtype=torch.int32, device=dev)
+    err = kernels.lib().sina_kmer_score_dense(
+        P.data_ptr(), kmers.data_ptr(), out.data_ptr(), S, R, B, L,
+        kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "kmer_score_dense")
+    kernels.launches["kmer_score_dense"] += 1
     return out
 
 

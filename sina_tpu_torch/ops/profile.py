@@ -15,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sina_tpu import alphabet
-from sina_tpu.sequence import Sequence
-from sina_tpu.timing import get_timer
+from .. import alphabet
+from ..sequence import Sequence
+from ..timing import get_timer
 
 from .align_kernel import DpParams
 from .profile_kernel import chain_traceback, gap_scale as _gap_scale, profile_dp
@@ -62,7 +62,7 @@ def build_profiles_batch(
     (sina_tpu/ops/profile.py:131-277).  Returns (freqs (B, cpad, 4)
     f32, gap_open (B, cpad) f32, gap_ext (B, cpad) f32, cols:
     per-family occupied column arrays)."""
-    from sina_tpu import native
+    from .. import native
 
     B = len(families)
     width = families[0][0].width
@@ -202,7 +202,7 @@ def can_window_batch(families: list[list[Sequence]]) -> bool:
     """True when window-restricted building is available for these
     families: native lib present + every member stamped into one
     shared flat store (sina_tpu/ops/profile.py:280-294)."""
-    from sina_tpu import native
+    from .. import native
 
     if native.get_lib() is None:
         return False
@@ -223,7 +223,7 @@ def build_profiles_packed_batch(
     fgq (B, cpad, 6) uint8 (see _pack_fgq) + per-family occupied
     column arrays (sina_tpu/ops/profile.py:297-380, including its
     documented one-column edge deviation of windowed builds)."""
-    from sina_tpu import native
+    from .. import native
 
     B = len(families)
     width = families[0][0].width

@@ -1,12 +1,13 @@
-"""Pipeline orchestrator: reader -> famfinder -> aligner -> writers ->
-stats.
+"""Pipeline orchestrator: reader -> famfinder -> aligner -> search ->
+writers -> stats.
 
 Port of sina_tpu/pipeline.py.  The pipeline pulls *batches* of queries
 so the two device stages (k-mer scoring and the alignment DP) run
 wide, in a 3-deep software pipeline over batches: famfinder scoring
 for batch N+1 is queued while batch N's DP runs and the host finishes
-batch N-1.  Order is preserved by construction.  Not ported: the
-search stage (-S), multi-host runs.
+batch N-1 (with the turn check, famfinder scores eagerly instead: its
+orientations are scored, then the reoriented queries rescored).  Order
+is preserved by construction.  Not ported: multi-host runs.
 """
 
 from __future__ import annotations
@@ -17,17 +18,17 @@ from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from sina_tpu.io.csv import CsvWriter
-from sina_tpu.io.fasta import FastaWriter, read_fasta
-from sina_tpu.log_stats import StatsPrinter
-from sina_tpu.progress import Progress
-from sina_tpu.refdb import ReferenceDb
-from sina_tpu.sequence import Sequence
-from sina_tpu.timing import get_timer
-
 from .align import AlignerConfig, align_dispatch, align_finalize
 from .device import resolve_device
 from .famfinder import FamFinder, FamFinderConfig, FamilyResult
+from .io.csv import CsvWriter
+from .io.fasta import FastaWriter, read_fasta
+from .log_stats import StatsPrinter
+from .progress import Progress
+from .refdb import ReferenceDb
+from .search import SearchConfig, SearchFilter
+from .sequence import Sequence
+from .timing import get_timer
 
 logger = logging.getLogger("sina.pipeline")
 
@@ -37,7 +38,9 @@ class PipelineConfig:
     in_path: str = "-"
     outputs: list[tuple[str, str]] = field(default_factory=list)
     db: str | None = None
+    search_db: str | None = None
     prealigned: bool = False
+    do_search: bool = False
     add_relatives: int = 0
     fields: list[str] = field(default_factory=list)
     batch_size: int = 128
@@ -48,6 +51,7 @@ class PipelineConfig:
 
     famfinder: FamFinderConfig = field(default_factory=FamFinderConfig)
     aligner: AlignerConfig = field(default_factory=AlignerConfig)
+    search: SearchConfig = field(default_factory=SearchConfig)
 
     # fasta writer options
     meta_fmt: str = "none"
@@ -74,6 +78,7 @@ class Pipeline:
         self.device = resolve_device(cfg.device)
         self.db: ReferenceDb | None = None
         self.finder: FamFinder | None = None
+        self.searcher: SearchFilter | None = None
 
         if not cfg.prealigned:
             if not cfg.db:
@@ -83,6 +88,19 @@ class Pipeline:
                 )
             self.db = ReferenceDb.open(cfg.db)
             self.finder = FamFinder(self.db, cfg.famfinder, self.device)
+        if cfg.do_search:
+            sdb_path = cfg.search_db or cfg.db
+            if not sdb_path:
+                raise ValueError("need search-db to search")
+            if self.db is not None and (
+                cfg.search_db in (None, cfg.db)
+            ):
+                sdb = self.db
+            else:
+                sdb = ReferenceDb.open(sdb_path)
+            self.searcher = SearchFilter(
+                sdb, cfg.search, self.finder, self.device
+            )
 
         self.stats = StatsPrinter(
             show_dist=cfg.show_dist, show_diff=cfg.show_diff,
@@ -90,8 +108,11 @@ class Pipeline:
         )
         if cfg.orig_db:
             self.stats.orig_db = ReferenceDb.open(cfg.orig_db)
-        if self.db is not None and len(self.db.pairs):
-            self.stats.helix_pairs = self.db.pairs
+        ref_for_pairs = self.db or (
+            self.searcher.db if self.searcher else None
+        )
+        if ref_for_pairs is not None and len(ref_for_pairs.pairs):
+            self.stats.helix_pairs = ref_for_pairs.pairs
 
     # -- writers ------------------------------------------------------
 
@@ -170,12 +191,22 @@ class Pipeline:
         self, entry
     ) -> list[tuple[Sequence, Sequence | None, list]]:
         """Stage B: fetch DP results, finish alignments (NAST,
-        overhang, attrs)."""
+        overhang, attrs), run the search stage.  A searched record's
+        relatives (--add-relatives) are its search results."""
         batch, families, state, aligned = entry
         if state is not None:
             with get_timer("Pipeline").section("align finalize"):
                 aligned = align_finalize(state)
-        return list(zip(batch, aligned, families))
+        if self.searcher is not None:
+            with get_timer("Pipeline").section("search"):
+                aligned = self.searcher.process_batch(aligned)
+        out = []
+        for q, a, fam in zip(batch, aligned, families):
+            rel = fam
+            if a is not None:
+                rel = getattr(a, "search_result", None) or fam
+            out.append((q, a, rel))
+        return out
 
     def _read_input(self):
         """Yield input sequences: FASTA(.gz) files, or a .sref bundle.

@@ -1,8 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Needs an NVIDIA GPU: every test skips without one.  On the card:
+Needs an NVIDIA GPU: every test skips without one.  On the card (where
+jax is not installed, so without tests/conftest.py):
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+
+Its fixtures come from the port's own testing and ops/graph: nothing
+here imports jax or the JAX package.
 
 The shapes are small edge cases; chip_smoke.py compares the kernels at
 the main path's shapes.  All outputs are integers or f32 values
@@ -65,6 +69,69 @@ def test_kmer_kernel_rejects_bad_operands(cuda):
         kk.kmer_scores(torch.zeros((10, 8), dtype=torch.uint8, device=cuda), k.cpu())
     with pytest.raises(TypeError):
         kk.kmer_scores(torch.zeros((10, 8), dtype=torch.uint8, device=cuda), k.long())
+
+
+@pytest.mark.parametrize(
+    "B,L,S",
+    [(1, 37, 256), (5, 1, 128), (3, 513, 384), (7, 64, 128), (4, 300, 16_384)],
+)
+def test_kmer_dense_kernel_matches_plain(cuda, B, L, S):
+    """B = 1, L = 1, L = 513, S = 128 (one partial tile), S = 16,384;
+    random int8 values of both signs, ids past either end clamped."""
+    g = torch.Generator().manual_seed(B * L + S)
+    P = torch.randint(-128, 128, (300, S), dtype=torch.int8, generator=g)
+    P[-1] = 0
+    kmers = torch.randint(-5, 310, (B, L), dtype=torch.int32, generator=g)
+    before = kernels.launches["kmer_score_dense"]
+    got = kk.kmer_scores(P.to(cuda), kmers.to(cuda))
+    assert kernels.launches["kmer_score_dense"] == before + 1
+    _equal([got], [kk.kmer_scores_dense_plain(P, kmers)])
+
+
+def test_kmer_dense_kernel_all_sink(cuda):
+    P = torch.randint(0, 2, (50, 256), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(3))
+    P[-1] = 0
+    kmers = torch.full((6, 90), 49, dtype=torch.int32)
+    got = kk.kmer_scores(P.to(cuda), kmers.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (6, 256)
+    assert int(got.abs().max()) == 0
+
+
+def test_kmer_dense_kernel_rejects_bad_operands(cuda):
+    k = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                 # row bytes not a multiple of 16
+        kk.kmer_scores(torch.zeros((10, 120), dtype=torch.int8, device=cuda), k)
+    flat = torch.zeros(10 * 128 + 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):                 # rows not 16-byte aligned
+        kk.kmer_scores(flat[1:].view(10, 128), k)
+    wide = torch.zeros((10, 256), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):                 # not contiguous
+        kk.kmer_scores(wide[:, :128], k)
+    with pytest.raises(TypeError):
+        kk.kmer_scores(torch.zeros((10, 128), dtype=torch.int16, device=cuda), k)
+
+
+def test_score_batch_on_a_dense_matrix_equals_the_packed_one(cuda):
+    """FamFinder.score_batch with the int8 device_matrix(packed=False)
+    (the dense kernel) and with the default packed one: equal scores."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
+    from sina_tpu_torch.ops.kmer_index import device_matrix
+
+    db = testing.make_reference(n_seqs=300, n_core=400, width=700, seed=6)
+    packed = FamFinder(db, FamFinderConfig(fs_kmer_len=8), cuda)
+    dense = packed.on_device(cuda)
+    dense._P = device_matrix(dense.index, cuda, packed=False)
+    assert dense._P.dtype == torch.int8
+    masks = [q.masks for q in testing.make_queries(db, n=9, seed=2, branch_len=0.5)]
+    before = dict(kernels.launches)
+    a = dense.score_batch(masks)
+    b = packed.score_batch(masks)
+    assert kernels.launches["kmer_score_dense"] == before["kmer_score_dense"] + 1
+    assert kernels.launches["kmer_score"] == before["kmer_score"] + 1
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (9, 300) and a.max() > 0
 
 
 def test_topk_lowest_id_on_cuda(cuda):
@@ -131,9 +198,9 @@ def _graph_bucket(seed, B, extra_nodes, mpad):
     padding nodes past the largest, and B queries in a (B, mpad)
     plane, as CPU tensors, plus the graphs' insertion budgets, the
     column-weight width and the ring depth."""
-    from sina_tpu import testing
-    from sina_tpu.ops.graph import build_graph, pad_graph
+    from sina_tpu_torch import testing
     from sina_tpu_torch.ops import graph_kernel as gk
+    from sina_tpu_torch.ops.graph import build_graph, pad_graph
 
     db = testing.make_reference(n_seqs=30, n_core=120, width=220, seed=seed)
     graphs = [build_graph(db.sequences[2 * b : 2 * b + 6]) for b in range(B)]

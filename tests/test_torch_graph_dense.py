@@ -9,7 +9,9 @@ others skip, so the next column's nodes sit more than 40 topological
 positions after their predecessors.  emit, best_j, best_i and raw must
 equal ak.poa_dp_batch(window=None) and ak.poa_dp_subst_batch exactly.
 
-The fixture and run_dense import nothing of JAX:
+The fixture and run_dense import nothing of JAX or the JAX package
+(the fixture comes from the port's testing and ops/graph, which build
+the JAX package's arrays from the same seed):
 tests/test_torch_cuda.py runs the same cases on the card.
 """
 
@@ -17,12 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from sina_tpu import testing
-from sina_tpu.ops.graph import build_graph, pad_graph
-from sina_tpu.sequence import Sequence
+from sina_tpu_torch import testing
 from sina_tpu_torch.ops import align_kernel as tak
 from sina_tpu_torch.ops import graph_kernel as gk
 from sina_tpu_torch.ops.align_kernel import DpParams
+from sina_tpu_torch.ops.graph import build_graph, pad_graph
+from sina_tpu_torch.sequence import Sequence
 
 INS = 40
 

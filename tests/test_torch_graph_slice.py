@@ -40,7 +40,7 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_graph_cli_output_is_byte_identical(case, tmp_path):
-    dumps = run_both_clis(CASES[case], tmp_path)
+    dumps, _ = run_both_clis(CASES[case], tmp_path)
     if "--debug-graph" in CASES[case]["extra"]:
         n = CASES[case]["n"]
         assert sum(f.startswith("mseq_") and f.endswith(".dot") for f in dumps) == n

@@ -1,4 +1,5 @@
-"""The port imports without jax, and its CLI refuses what is not ported."""
+"""The port imports neither jax nor the JAX package, and its CLI refuses
+what is not ported."""
 
 import subprocess
 import sys
@@ -10,36 +11,72 @@ REPO = Path(__file__).resolve().parent.parent
 
 PORT_MODULES = [
     "sina_tpu_torch",
+    "sina_tpu_torch.alphabet",
+    "sina_tpu_torch.sequence",
+    "sina_tpu_torch.timing",
+    "sina_tpu_torch.cache",
+    "sina_tpu_torch.progress",
+    "sina_tpu_torch.native",
+    "sina_tpu_torch.io",
+    "sina_tpu_torch.io.fasta",
+    "sina_tpu_torch.io.csv",
+    "sina_tpu_torch.refdb",
+    "sina_tpu_torch.comparator",
+    "sina_tpu_torch.stats",
+    "sina_tpu_torch.log_stats",
+    "sina_tpu_torch.testing",
     "sina_tpu_torch.device",
     "sina_tpu_torch.famfinder",
+    "sina_tpu_torch.search",
     "sina_tpu_torch.align",
     "sina_tpu_torch.pipeline",
     "sina_tpu_torch.cli",
+    "sina_tpu_torch.ops",
     "sina_tpu_torch.ops.kernels",
+    "sina_tpu_torch.ops.kmer",
     "sina_tpu_torch.ops.kmer_kernel",
     "sina_tpu_torch.ops.kmer_index",
+    "sina_tpu_torch.ops.colspan",
+    "sina_tpu_torch.ops.graph",
     "sina_tpu_torch.ops.align_kernel",
+    "sina_tpu_torch.ops.graph_kernel",
     "sina_tpu_torch.ops.profile",
     "sina_tpu_torch.ops.profile_kernel",
 ]
 
-# installs a sys.meta_path hook that makes every jax/jaxlib import fail
+# installs a sys.meta_path hook that makes every import of jax, jaxlib
+# and the JAX package sina_tpu fail
 BLOCK_JAX = """
 import sys
 class _BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in ("jax", "jaxlib", "sina_tpu"):
+            raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, _BlockJax())
 """
 
+NOTHING_BLOCKED_LOADED = (
+    "assert not any(k.split('.')[0] in ('jax', 'jaxlib', 'sina_tpu') for k in sys.modules)\n"
+)
 
-def _run(code: str) -> subprocess.CompletedProcess:
+
+def _run(code: str, cwd=REPO) -> subprocess.CompletedProcess:
     return subprocess.run(
         [sys.executable, "-c", BLOCK_JAX + code],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
+        cwd=cwd, capture_output=True, text=True, timeout=300,
         env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"},
     )
+
+
+def test_port_modules_are_all_listed():
+    pkg = REPO / "sina_tpu_torch"
+    found = set()
+    for path in pkg.rglob("*.py"):
+        parts = path.relative_to(REPO).with_suffix("").parts
+        if parts[-1] == "__main__":
+            continue
+        found.add(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    assert found == set(PORT_MODULES)
 
 
 def test_port_imports_without_jax():
@@ -47,7 +84,7 @@ def test_port_imports_without_jax():
         "import importlib\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'jaxlib') for k in sys.modules)\n"
+        + NOTHING_BLOCKED_LOADED +
         "print('ok')\n"
     )
     res = _run(code)
@@ -75,19 +112,54 @@ def test_port_sources_never_import_jax():
             )
 
 
+def test_port_sources_never_import_the_jax_package():
+    paths = [*(REPO / "sina_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    for path in paths:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            bad = len(words) >= 2 and words[0] in ("import", "from") and (
+                words[1] == "sina_tpu" or words[1].startswith("sina_tpu."))
+            assert not bad, f"{path}: {line}"
+
+
+def test_cli_turn_and_search_without_jax(tmp_path):
+    """The port's CLI, with jax and sina_tpu blocked, runs the turn
+    check and search + LCA on a small generated fixture."""
+    code = (
+        "from sina_tpu_torch import cli, testing\n"
+        "from sina_tpu_torch.io.fasta import FastaWriter, read_fasta\n"
+        "db = testing.make_reference(n_seqs=60, n_core=300, width=500, seed=3)\n"
+        "qs = [testing.unaligned_copy(q) for q in testing.make_queries(db, n=4, seed=5, branch_len=0.5)]\n"
+        "qs[1].reverse().complement()\n"
+        "with FastaWriter('ref.fasta', meta='comment') as w:\n"
+        "    [w.write(s) for s in db.sequences]\n"
+        "with FastaWriter('q.fasta') as w:\n"
+        "    [w.write(q) for q in qs]\n"
+        "rc = cli.main(['-i', 'q.fasta', '-r', 'ref.fasta', '-o', 'out.fasta', '--fs-min', '10',\n"
+        "               '--fs-max', '10', '--fs-full-len', '300', '--fs-req-gaps', '1',\n"
+        "               '--meta-fmt', 'comment', '--device', 'cpu', '-S', '--turn', 'all',\n"
+        "               '--lca-fields', 'tax_slv', '-q'])\n"
+        "assert rc == 0, rc\n"
+        "recs = list(read_fasta('out.fasta'))\n"
+        "assert [r.get_attr('turn_slv') for r in recs][:2] == ['none', 'reversed and complemented']\n"
+        "assert all(r.get_attr('lca_tax_slv') for r in recs)\n"
+        + NOTHING_BLOCKED_LOADED +
+        "print('ok')\n"
+    )
+    res = _run(code, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--fs-graph", "--debug-lattice", "0:10"],
-        ["--fs-no-graph", "--insertion", "forbid"],
-        ["--insertion", "forbid"],
-        ["--turn"],
-        ["--turn", "all"],
-        ["-S"],
-        ["--search"],
-        ["--multihost"],
-        ["--debug-lattice", "0:10"],
-        ["--jax-profile-dir", "prof"],
+        pytest.param(["--fs-graph", "--debug-lattice", "0:10"], id="argv0"),
+        pytest.param(["--fs-no-graph", "--insertion", "forbid"], id="argv1"),
+        pytest.param(["--insertion", "forbid"], id="argv2"),
+        pytest.param(["--multihost"], id="argv7"),
+        pytest.param(["--debug-lattice", "0:10"], id="argv8"),
+        pytest.param(["--jax-profile-dir", "prof"], id="argv9"),
     ],
 )
 def test_unported_options_exit_2(argv, capsys):
@@ -99,6 +171,59 @@ def test_unported_options_exit_2(argv, capsys):
     err = capsys.readouterr().err
     assert "not ported to sina_tpu_torch" in err
     assert "JAX package sina_tpu" in err
+
+
+@pytest.fixture(scope="module")
+def small_fixture(tmp_path_factory):
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.io.fasta import FastaWriter
+
+    d = tmp_path_factory.mktemp("ported")
+    db = testing.make_reference(n_seqs=80, n_core=300, width=500, seed=4)
+    qs = [testing.unaligned_copy(q) for q in testing.make_queries(db, n=6, seed=8, branch_len=0.5)]
+    qs[2].reverse()
+    with FastaWriter(str(d / "ref.fasta"), meta="comment") as w:
+        for s in db.sequences:
+            w.write(s)
+    with FastaWriter(str(d / "q.fasta")) as w:
+        for q in qs:
+            w.write(q)
+    return d
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        pytest.param(["--turn"], id="argv3"),
+        pytest.param(["--turn", "all"], id="argv4"),
+        pytest.param(["-S"], id="argv5"),
+        pytest.param(["--search"], id="argv6"),
+    ],
+)
+def test_ported_options_run(argv, small_fixture, tmp_path):
+    """Options that exited 2 before the turn check and search were
+    ported now run on the CPU and set their attributes."""
+    from sina_tpu_torch import cli
+    from sina_tpu_torch.io.fasta import read_fasta
+
+    d = small_fixture
+    out = tmp_path / "out.fasta"
+    rc = cli.main(["-i", str(d / "q.fasta"), "-r", str(d / "ref.fasta"), "-o", str(out),
+                   "--fs-min", "10", "--fs-max", "10", "--fs-full-len", "300",
+                   "--fs-req-gaps", "1", "--meta-fmt", "comment", "--device", "cpu",
+                   "-q", *argv])
+    assert rc == 0
+    recs = list(read_fasta(str(out)))
+    assert len(recs) == 6
+    if argv[0] == "--turn":
+        turns = [r.get_attr("turn_slv") for r in recs]
+        assert turns[0] == "none"
+        if "all" in argv:
+            assert turns[2] == "reversed"
+        assert "turn-check disabled" not in turns
+    else:
+        assert all(r.get_attr("nearest_slv") is not None for r in recs)
+        assert any(r.get_attr("nearest_slv") for r in recs)
 
 
 def test_cuda_device_without_gpu_fails_loudly(tmp_path, capsys):

@@ -1,7 +1,10 @@
-"""The port's k-mer scorer and top-k against the JAX package.
+"""The port's k-mer scorers and top-k against the JAX package.
 
 Scores are integer counts: every comparison is exact.  The JAX side
-runs its Pallas kernels in interpret mode and its XLA path on the CPU.
+runs its Pallas kernels in interpret mode and its XLA path on the CPU
+(the dense scorer's Pallas kernel has no interpret switch: its CPU
+route is kmer_scores_xla).  A JAX-package index reaches the port as
+its CSR arrays (KmerIndex.from_arrays).
 """
 
 import jax.numpy as jnp
@@ -17,11 +20,19 @@ from sina_tpu.ops.kmer_kernel import (
     kmer_scores_packed_pallas,
     kmer_scores_packed_tiled_pallas,
     kmer_scores_packed_xla,
+    kmer_scores_xla,
 )
+from sina_tpu_torch.ops import kmer_index as port_index
 from sina_tpu_torch.ops import kmer_kernel as kk
 from sina_tpu_torch.ops.kmer_index import device_matrix
 
 CPU = torch.device("cpu")
+
+
+def carry(idx: KmerIndex) -> port_index.KmerIndex:
+    """The JAX package's index carried into the port as numpy arrays."""
+    return port_index.KmerIndex.from_arrays(
+        idx.seq_kmers, idx.seq_offsets, idx.n_seqs, idx.k, idx.fast)
 
 
 def test_packed_scores_match_pallas_and_xla():
@@ -35,7 +46,7 @@ def test_packed_scores_match_pallas_and_xla():
         kmer_scores_packed_pallas(jnp.asarray(Pp), kmers, interpret=True)
     )
     xla = np.asarray(kmer_scores_packed_xla(jnp.asarray(Pp), kmers))
-    P = device_matrix(idx, CPU)
+    P = device_matrix(carry(idx), CPU)
     got = kk.kmer_scores(P, torch.from_numpy(kmers)).numpy()
     np.testing.assert_array_equal(got, pal)
     np.testing.assert_array_equal(got, xla)
@@ -81,6 +92,52 @@ def test_tiled_view_matches_tiled_pallas():
     # the 3-D tensor scores as its flat view
     got3 = kk.kmer_scores(torch.from_numpy(P3), torch.from_numpy(kmers)).numpy()
     np.testing.assert_array_equal(got3, pal)
+
+
+def test_dense_scores_match_xla_and_packed():
+    """The dense scorer (an int8 device_matrix, as the JAX package's
+    device_matrix(packed=False)) against kmer_scores_xla on idx.dense()
+    and against the packed scorer on the same index."""
+    db = testing.make_reference(n_seqs=150, n_core=200, width=400, seed=12)
+    idx = KmerIndex.build(db, k=8, fast=True)
+    masks = [s.masks for s in db.sequences[:7]]
+    kmers, _ = query_kmers_padded(masks, 8, fast=True, pad_to=320)
+    want = np.asarray(kmer_scores_xla(jnp.asarray(idx.dense()), kmers))
+    port = carry(idx)
+    P8 = device_matrix(port, CPU, packed=False)
+    assert P8.dtype == torch.int8 and P8.shape == idx.dense().shape
+    assert P8.shape[1] % 128 == 0 and P8.shape[1] != 8 * port.dense_packed().shape[1]
+    km = torch.from_numpy(kmers)
+    got = kk.kmer_scores(P8, km).numpy()
+    np.testing.assert_array_equal(got, want)
+    packed = kk.kmer_scores(device_matrix(port, CPU), km).numpy()
+    S = got.shape[1]
+    np.testing.assert_array_equal(got, packed[:, :S])
+    assert not packed[:, S:].any()
+    # the self-retrieval invariant of test_kmer.py
+    assert (got[np.arange(7), np.arange(7)] == got[:, :idx.n_seqs].max(axis=1)).all()
+
+
+def test_dense_random_matrix_with_out_of_range_ids():
+    rng = np.random.default_rng(4)
+    P = rng.integers(0, 2, (257, 256), dtype=np.int8)
+    P[-1] = 0
+    packed = np.packbits(P.astype(bool), axis=1, bitorder="little")
+    kmers = rng.integers(0, 257, (5, 77), dtype=np.int32)
+    want = np.asarray(kmer_scores_xla(jnp.asarray(P), jnp.asarray(kmers)))
+    got = kk.kmer_scores_dense_plain(torch.from_numpy(P), torch.from_numpy(kmers)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # ids past the end clamp to the sink row, ids below 0 to row 0,
+    # in the dense and the packed scorer alike
+    bad = kmers.copy()
+    bad[:, ::3] = 10_000
+    bad[:, 1::5] = -7
+    sink = np.where(bad >= 257, 256, np.maximum(bad, 0)).astype(np.int32)
+    got = kk.kmer_scores(torch.from_numpy(P), torch.from_numpy(bad)).numpy()
+    want = np.asarray(kmer_scores_xla(jnp.asarray(P), jnp.asarray(sink)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, kk.kmer_scores(torch.from_numpy(packed), torch.from_numpy(bad)).numpy())
 
 
 def _tied_index(rng, n_refs: int):

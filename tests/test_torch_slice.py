@@ -25,6 +25,30 @@ def _amplicon(q, lo: int, n: int):
     return q
 
 
+def _as_given(q, i: int, c: dict):
+    """Query `q` as the case writes it to the input: aligned for -P,
+    else unaligned; with "turn", queries 1, 2 and 3 of every four
+    reversed, complemented, and reversed and complemented."""
+    if c.get("prealigned"):
+        return q
+    u = testing.unaligned_copy(q)
+    if c.get("turn"):
+        if i % 4 in (1, 3):
+            u.reverse()
+        if i % 4 in (2, 3):
+            u.complement()
+    return u
+
+
+def _turned(seq, turn_slv: str):
+    """`seq` turned as a record's `turn_slv` says the aligner turned it."""
+    if turn_slv in ("reversed", "reversed and complemented"):
+        seq.reverse()
+    if turn_slv in ("complemented", "reversed and complemented"):
+        seq.complement()
+    return seq
+
+
 CASES = {
     # the fixture of .claude/skills/verify/SKILL.md
     "verify": dict(
@@ -46,14 +70,16 @@ CASES = {
 }
 
 
-def run_both_clis(c: dict, tmp_path) -> dict[str, str]:
+def run_both_clis(c: dict, tmp_path) -> tuple[dict[str, str], list]:
     """Write case `c`'s reference and queries, run the JAX CLI and the
     port's CLI (--device cpu) on them, each in a working directory of
     its own, and assert the FASTA and CSV outputs are identical apart
     from the `aligned_slv` stamps, that any other file a run wrote
     there (the --debug-graph dumps) is identical too, and that the
-    port's records are real alignments of the queries.  Returns the
-    port's other files, by name."""
+    port's records are real alignments of the queries, in the queries'
+    own orientation.  With "search_db" every other reference is also
+    written as a second database for --search-db.  Returns the port's
+    other files, by name, and its FASTA records."""
     db = testing.make_reference(**c["ref"])
     queries = testing.make_queries(db, n=c["n"], seed=7, branch_len=0.6)
     if "amplicon" in c:
@@ -63,14 +89,21 @@ def run_both_clis(c: dict, tmp_path) -> dict[str, str]:
     with FastaWriter(str(ref), meta="comment") as w:
         for s in db.sequences:
             w.write(s)
+    given = [_as_given(q, i, c) for i, q in enumerate(queries)]
     with FastaWriter(str(qin)) as w:
-        for q in queries:
-            w.write(testing.unaligned_copy(q))
+        for u in given:
+            w.write(u)
     common = [
         "-i", str(qin), "-r", str(ref), "--fs-min", "10", "--fs-max", "10",
         "--fs-full-len", str(c["full_len"]), "--fs-req-gaps", "1",
         "--calc-idty", "--meta-fmt", "comment", *c["extra"],
     ]
+    if c.get("search_db"):
+        sdb = tmp_path / "search.fasta"
+        with FastaWriter(str(sdb), meta="comment") as w:
+            for s in db.sequences[::2]:
+                w.write(s)
+        common += ["--search-db", str(sdb)]
     outs, dumps = {}, {}
     for name, main, more in (
         ("jax", jax_cli.main, []),
@@ -86,16 +119,17 @@ def run_both_clis(c: dict, tmp_path) -> dict[str, str]:
     assert dumps["jax"] == dumps["torch"]
     for jax_out, torch_out in zip(outs["jax"], outs["torch"]):
         a, b = jax_out.read_text(), torch_out.read_text()
-        assert len(_STAMP.findall(a)) == c["n"]
+        assert len(_STAMP.findall(a)) == (0 if c.get("prealigned") else c["n"])
         assert _STAMP.sub(r"\1T", a) == _STAMP.sub(r"\1T", b)
     # and the port's records are real alignments of the queries
     got = list(read_fasta(str(outs["torch"][0])))
     assert len(got) == c["n"]
-    for rec, q in zip(got, queries):
+    for rec, u in zip(got, given):
         assert rec.width == db.width
-        assert rec.get_bases().upper() == q.get_bases().upper()
+        want = _turned(u.copy(), rec.get_attr("turn_slv", ""))
+        assert rec.get_bases().upper() == want.get_bases().upper()
         assert np.all(np.diff(rec.positions.astype(np.int64)) > 0)
-    return dumps["torch"]
+    return dumps["torch"], got
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
