@@ -11,6 +11,11 @@ Phases, each printing a line:
      source, all started together);
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (exact), with both times and the card's bound;
+     the two DPs with their launch plans (threads, registers, shared
+     memory a block) and their times from another run before the
+     redesign beside the new ones; the graph DP's global-ring route
+     (its ring one slot deeper than shared memory holds) on the same
+     bucket;
      the dense int8 scorer on a (4**9+1) x 16,384 {0,1} matrix (the
      dense layout of a 16k-reference index), also against the packed
      kernel on the same matrix bitpacked and timed beside one
@@ -44,7 +49,9 @@ Phases, each printing a line:
      FamFinderConfig(turn="all") and a SearchFilter sharing the finder
      (1,000 k-mer candidates, lca_fields tax_slv): every copy reports
      the orientation it was given and yields the as-is copy's aligned
-     row, nearest_slv and lca_tax_slv;
+     row, nearest_slv and lca_tax_slv; the search's 1,000 candidates
+     come from the grouped top-k (100,352 padded references), whose
+     ids must equal the cpu's;
  11. the first 16 of those again with device="cpu": identical records,
      turn_slv, nearest_slv and lca_tax_slv included.
 
@@ -85,13 +92,58 @@ N_TURN = 64
 TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): device
-# memory bytes/s, and float32 operations/s outside the tensor cores, the
-# rate integer adds are counted at too
+# memory bytes/s, and float32 operations/s outside the tensor cores (a
+# multiply-add counts two), the rate the k-mer scorers' adds and the
+# tracebacks' steps are counted at
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations per DP cell, as the kernels' source notes count them
-PROFILE_OPS_PER_CELL = 40
-GRAPH_OPS_PER_CELL = 60
+# the DPs are counted in instructions of one thread instead: the SMs
+# issue at most 128 thread-instructions an SM a clock (4 schedulers, one
+# warp instruction each), the rate of the f32 add, min, compare and
+# select, half the data sheet's multiply-add-doubled rate; integer
+# instructions run on 64 threads an SM a clock (Hopper's INT32 units),
+# half that
+ISSUE_PER_S = F32_OPS_PER_S / 2
+INT32_PER_S = ISSUE_PER_S / 2
+# The DPs' instructions, counted from their plain versions (any design
+# of the kernels does this work), each add, multiply, min, compare and
+# select one, a multiply-add one (the reference rounds it once, as one
+# f32 FMA does), the insertion prefix-min one min a cell (the work of a
+# serial scan); (all, integer).  ops/profile_kernel.py
+# profile_dp_plain, per real column and query position: deletion track
+# 5, match 1, U and code 6 (2 integer), insertion candidate 2,
+# prefix-min 1, Irow 2, ins_opened 3, take_i, Vrow and code 3 (1
+# integer), the bp byte 4 (integer): 27, 7 of them integer.
+PROFILE_INSTS_PER_CELL = (27, 7)
+# per real column: the profile's unpack 10, occupancy 3, its deletion
+# and mismatch products 3, and for each of the 16 query masks the
+# substitution cost (dot 7, sub 4): 192; end candidate 1 (compare,
+# value and column selects) 3, 1 integer
+PROFILE_INSTS_PER_COLUMN = (16 + 16 * 11 + 3, 1)
+# per query position, once a row (end candidate 2, the row argmin at
+# the last real column): compare, value and index selects
+PROFILE_INSTS_PER_POSITION = (3, 1)
+# ops/graph_kernel.py _graph_core_plain, per real node and query
+# position: Drow 1, Mc 1, code and U 5 (2 integer), insertion candidate
+# 2, prefix-min 2, Irow 1, ins_opened 3, take_i, Vrow and code 3 (1
+# integer), the bp word 6 (integer): 24, 9 integer; and for each
+# predecessor the node probes (from the bucket's own masks): mdist 2 (1
+# integer), vmin 1, deletion open and extend 2, dc 1, upd 1, ddist 1
+# (integer), dopen 2 (1 integer), dmin 1: 11, 3 integer
+GRAPH_INSTS_PER_CELL = (24, 9)
+GRAPH_INSTS_PER_PRED_CELL = (11, 3)
+# per real node: its five costs 5, end candidate 1 3 (1 integer); per
+# end node and query position: end candidate 2 4 (1 integer)
+GRAPH_INSTS_PER_NODE = (8, 1)
+GRAPH_INSTS_PER_END_CELL = (4, 1)
+# the DPs' times before their redesign for this card (PERF.md section 6,
+# PR 3's chip runs on an NVIDIA H100 80GB HBM3 at 700 W, same shapes):
+# printed beside this run's, so the ratio holds both runs' spread
+BEFORE_MS = {"profile_dp": 2.046, "graph_dp simple": 8.926,
+             "graph_dp weighted": 8.883, "graph_dp aspace": 11.120,
+             "graph_dp matrix": 10.980}
+# the launches each DP time is the mean of
+DP_REPS = 10
 
 KERNELS = {
     "kmer_score": ("sina_tpu_torch/csrc/kmer_score.cu",
@@ -123,12 +175,14 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float = 0.0, insts: tuple = (0, 0)) -> dict:
     """The least time the card could take for work that moves `nbytes`
     of device memory (each input read once, each output written once)
-    and does `nops` operations, and which of the two bounds it."""
+    and does `nops` operations at the f32 rate, or `insts` = (all,
+    integer) instructions, and which of the two bounds it."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * nops / F32_OPS_PER_S
+    by_ops = 1e3 * max(nops / F32_OPS_PER_S, insts[0] / ISSUE_PER_S,
+                       insts[1] / INT32_PER_S)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -276,11 +330,11 @@ def phase_kernels(dev) -> dict:
     fg, qm, ln = (torch.from_numpy(a).to(dev) for a in (fgq, qmask, lens))
     got = pk.profile_dp(fg, qm, ln, params)
     ref = pk.profile_dp_plain(fg, qm, ln, params)
-    names = ("bp", "best_c", "best_i", "raw")
-    for n, a, b in zip(names, got, ref):
+    for n, a, b in zip(("bp", "best_c", "best_i", "raw"), got, ref):
         if not torch.equal(a, b):
             bad = int((a != b).sum())
-            raise AssertionError(f"profile_dp {n} disagrees with its plain version ({bad} cells)")
+            raise AssertionError(f"profile_dp {n} disagrees with its plain version "
+                                 f"({bad} cells)")
     dp_err = float((got[3] - ref[3]).abs().max())
     # the dedup gather: 64 unique profiles, two queries each
     fam = torch.arange(B_MAIN, dtype=torch.int32, device=dev) % 64
@@ -288,18 +342,25 @@ def phase_kernels(dev) -> dict:
     rd = pk.profile_dp_plain(fg[:64].contiguous(), qm, ln, params, fam_idx=fam)
     if not all(torch.equal(a, b) for a, b in zip(gd, rd)):
         raise AssertionError("profile_dp with fam_idx disagrees with its plain version")
-    ms = time_ms(lambda: pk.profile_dp(fg, qm, ln, params), 3)
+    ms = time_ms(lambda: pk.profile_dp(fg, qm, ln, params), DP_REPS)
     plain_ms = time_ms(lambda: pk.profile_dp_plain(fg, qm, ln, params), 1)
-    # inputs and the whole bp plane plus the end cells; the cells each
-    # row's recurrence needs (its columns x its query length)
-    cells = int((lens[:, 0].astype(np.int64) * lens[:, 1]).sum())
+    # inputs and the whole bp plane plus the end cells; the instructions
+    # of each row's real columns and query length
+    ql, cr = lens[:, 0].astype(np.int64), lens[:, 1].astype(np.int64)
+    counts = (int((ql * cr).sum()), int(cr.sum()), int(ql.sum()))
+    per = (PROFILE_INSTS_PER_CELL, PROFILE_INSTS_PER_COLUMN, PROFILE_INSTS_PER_POSITION)
+    insts = tuple(sum(n * p[k] for n, p in zip(counts, per)) for k in (0, 1))
     b = bound(fgq.nbytes + qmask.nbytes + lens.nbytes + B_MAIN * C_MAIN * M_MAIN
-              + 12 * B_MAIN, PROFILE_OPS_PER_CELL * cells)
+              + 12 * B_MAIN, insts=insts)
     out["profile_dp"] = {"max_abs_err": dp_err, "ms": ms, "plain_ms": plain_ms,
                          **b, "library_ms": None}
     say(f"phase 3 profile_dp: B={B_MAIN} C={C_MAIN} M={M_MAIN} bp/best_c/"
-        f"best_i/raw exact (also with fam_idx); kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+        f"best_i/raw exact (also with fam_idx); kernel {ms:.3f} ms (PR 3, "
+        f"other run: {BEFORE_MS['profile_dp']:.3f} ms, "
+        f"{ms / BEFORE_MS['profile_dp']:.3f}x), plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {counts[0]} cells, "
+        f"{insts[0]} instructions, {insts[1]} integer); launch plan "
+        f"{pk.profile_dp_plan(M_MAIN)}")
 
     bp, bc, bi, _ = got
     emit = pk.chain_traceback(bp, bc, bi)
@@ -463,8 +524,8 @@ def phase_graph_kernels(dev) -> dict:
     params = DpParams()
     out = {}
     for mode, (cw, max_ins, sm) in modes.items():
-        def kernel():
-            return gk.graph_dp(*ops, cw, max_ins, sm, params=params, k_ring=k_ring)
+        def kernel(k=k_ring):
+            return gk.graph_dp(*ops, cw, max_ins, sm, params=params, k_ring=k)
 
         got = kernel()
         start = torch.cuda.Event(enable_timing=True)
@@ -477,8 +538,8 @@ def phase_graph_kernels(dev) -> dict:
         for n, a, b in zip(("bp", "best_j", "best_i", "raw"), got, ref):
             if not torch.equal(a, b):
                 bad = int((a != b).sum())
-                raise AssertionError(
-                    f"graph_dp ({mode}) {n} disagrees with its plain version ({bad} cells)")
+                raise AssertionError(f"graph_dp ({mode}) {n} disagrees with its "
+                                     f"plain version ({bad} cells)")
         emit, done = gk.graph_traceback(*got[:3], flags)
         t0 = time.perf_counter()
         emit_ref, done_ref = gk.graph_traceback_plain(*ref[:3], flags)
@@ -488,23 +549,40 @@ def phase_graph_kernels(dev) -> dict:
         if int(done.min()) != 1:
             raise AssertionError(f"graph_traceback ({mode}): a walk did not finish")
         aligned = int((emit >= 0).sum(dim=1).min())
-        ms = time_ms(kernel, 3)
+        ms = time_ms(kernel, DP_REPS)
         tb_ms = time_ms(lambda: gk.graph_traceback(*got[:3], flags), 5)
+        before = BEFORE_MS[f"graph_dp {mode}"]
         say(f"phase 3 graph_dp {mode}: B={B_MAIN} N={N_GRAPH} M={M_MAIN} "
-            f"K={k_ring} bp/best_j/best_i/raw exact; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"K={k_ring} bp/best_j/best_i/raw exact; kernel {ms:.3f} ms (PR 3, "
+            f"other run: {before:.3f} ms, {ms / before:.3f}x), plain "
+            f"{plain_ms:.3f} ms; launch plan "
+            f"{gk.graph_dp_plan(M_MAIN, k_ring, max_ins is not None)}")
         say(f"phase 3 graph_traceback {mode}: emit exact (fewest bases "
             f"emitted in a row: {aligned}); kernel {tb_ms:.3f} ms, plain "
             f"(host walk) {tb_plain_ms:.3f} ms")
         if mode == "simple":
+            phase_global_ring(kernel, ref, k_ring)
             phase_dense_route(ops, dense, cw, got, emit, params)
             # the node and query planes, the column weights, the uint16
-            # bp plane and the end cells; the cells each query's
-            # recurrence needs (its graph's real nodes x its length)
-            cells = int((dense[4].long() * ops[6].long()).sum())
+            # bp plane and the end cells; the instructions of each
+            # query's cells (its graph's real nodes x its length), of
+            # the predecessors each node probes, of its real nodes and
+            # of its end nodes' cells
+            n_real, qlen, predbits = dense[4].long(), ops[6].long(), ops[3]
+            cells = int((n_real * qlen).sum())
+            real = torch.arange(N_GRAPH, device=dev)[None, :] < n_real[:, None]
+            npred = torch.zeros_like(predbits, dtype=torch.int64)
+            for d in range(32):
+                npred += (predbits >> d) & 1
+            pred_cells = int(((npred * real).sum(dim=1) * qlen).sum())
+            n_end = (((flags & 6) == 6) & real).sum(dim=1)
+            counts = (cells, pred_cells, int(n_real.sum()), int((n_end * qlen).sum()))
+            per = (GRAPH_INSTS_PER_CELL, GRAPH_INSTS_PER_PRED_CELL,
+                   GRAPH_INSTS_PER_NODE, GRAPH_INSTS_PER_END_CELL)
+            insts = tuple(sum(n * p[k] for n, p in zip(counts, per)) for k in (0, 1))
             b = bound(sum(t.numel() * t.element_size() for t in (*ops, cw))
                       + got[0].numel() * got[0].element_size() + 12 * B_MAIN,
-                      GRAPH_OPS_PER_CELL * cells)
+                      insts=insts)
             out["graph_dp"] = {"max_abs_err": float((got[3] - ref[3]).abs().max()),
                                "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
             tb = traceback_bound(emit, 2)
@@ -512,11 +590,41 @@ def phase_graph_kernels(dev) -> dict:
                                       "ms": tb_ms, "plain_ms": tb_plain_ms, **tb,
                                       "library_ms": None}
             say(f"phase 3 graph bounds (simple): graph_dp {b['bound_ms']:.3f} ms "
-                f"({b['bound_by']}), graph_traceback {tb['bound_ms']:.5f} ms "
-                f"({tb['bound_by']})")
+                f"({b['bound_by']}; {cells} cells, {pred_cells} predecessor probes, "
+                f"{insts[0]} instructions, {insts[1]} integer), "
+                f"graph_traceback {tb['bound_ms']:.5f} ms ({tb['bound_by']})")
         del got, ref, emit, emit_ref
         torch.cuda.empty_cache()
     return out
+
+
+def phase_global_ring(kernel, ref, k_ring) -> None:
+    """The graph DP's global-ring route on the main path's bucket: a
+    ring one slot deeper than shared memory holds (any depth above the
+    largest predecessor distance gives the same result) puts it in the
+    per-query global scratch; it must equal the plain version and be
+    counted as that route."""
+    import torch
+
+    from sina_tpu_torch.ops import graph_kernel as gk
+    from sina_tpu_torch.ops import kernels
+
+    depth = gk.graph_dp_plan(M_MAIN, k_ring, False)["max_shared_ring"] + 1
+    if depth > gk.MAX_DIST:
+        raise AssertionError(f"a ring of {depth - 1} slots fits shared memory: "
+                             "no global-ring route at the main path's bucket")
+    before = kernels.launches["graph_dp_global_ring"]
+    got = kernel(k=depth)
+    if kernels.launches["graph_dp_global_ring"] != before + 1:
+        raise AssertionError("graph_dp at a deep ring did not take the global-ring route")
+    for n, a, b in zip(("bp", "best_j", "best_i", "raw"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"graph_dp (global ring) {n} disagrees with its plain version")
+    del got
+    ms = time_ms(lambda: kernel(k=depth), DP_REPS)
+    say(f"phase 3 graph_dp global-ring route simple: K={depth} (shared memory "
+        f"holds {depth - 1}) exact; kernel {ms:.3f} ms; launch plan "
+        f"{gk.graph_dp_plan(M_MAIN, depth, False)}")
 
 
 def phase_dense_route(ops, dense, cw, got, emit, params) -> None:
@@ -971,6 +1079,22 @@ def phase_turn_search(dev, finder, db):
     missing = [k for k in PROFILE_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the turn + search path: {missing}")
+    # the search's candidates at the index's padded width come from the
+    # grouped top-k: the card's ids equal the plain versions' on the cpu
+    from sina_tpu_torch.ops import kmer_kernel as kk
+
+    masks = [q.masks for q in pristine[:16]]
+    gv, gi = tf.score_topk(masks, scfg.kmer_candidates)
+    cv, ci = tf.on_device("cpu").score_topk(masks, scfg.kmer_candidates)
+    if not (np.array_equal(gv, cv) and np.array_equal(gi, ci)):
+        raise AssertionError("turn + search: top-k ids differ between the card and the cpu")
+    padded = 8 * tf._matrix().shape[1]
+    if padded < kk.GROUPED_MIN_WIDTH:
+        raise AssertionError(f"turn + search: {padded} padded references do not "
+                             "reach the grouped top-k")
+    say(f"phase 10 top-k: {padded} padded references (grouped top-k from "
+        f"{kk.GROUPED_MIN_WIDTH}); top-{scfg.kmer_candidates} values and ids of 16 "
+        f"queries equal on the card and on the cpu")
     classified = sum(r.get_attr("lca_tax_slv") != "Unclassified;" for r in out)
     say(f"phase 10 turn + search: {len(given)} queries ({N_TURN} x 4 "
         f"orientations) in {took:.3f}s = {len(given) / took:.2f} seq/s on "

@@ -11,22 +11,30 @@
 // bit 2 deletion opened, bit 3 insertion opened), best_c, best_i (B,) int32
 // and raw (B,) float32.
 //
-// What bounds it: the recurrence over columns is sequential. Per column a
-// block does ~40 f32 operations per query position and one block-wide
-// prefix-min (two barriers); the bytes are small (6 profile bytes in and M
-// backpointer bytes out per row and column: the whole bp plane at C=2048,
-// B=128, M=1536 is 403 MB). So it is bound by barrier and instruction
-// latency, with B blocks in flight.
+// What bounds it: the recurrence over columns is sequential, one block per
+// query row, and the bytes are small (6 profile bytes in and M backpointer
+// bytes out per row and column: the whole bp plane at C=2048, B=128, M=1536
+// is 403 MB). A column is bound by its instructions and their latency on
+// one SM, so the design takes work and waits out of the column loop:
 //
-// Design: the TPU's sequential grid axis over columns becomes a loop inside
-// the block; nothing carries over between blocks. The V and D rows stay in
-// registers: each thread owns K consecutive query positions, so the insertion
-// prefix-min is a running min inside the thread plus one block scan of the
-// per-thread minima (warp shuffles, then the warp minima from shared memory),
-// the lane shifts need only the neighbouring thread's last value, and the
-// backpointer row goes out as one K-byte vector store per thread. End
-// selection needs no per-column reduction: the candidate-1 cell is owned by
-// one thread, and the candidate-2 row argmin runs once, at column c_real-1.
+// - The substitution cost of a column depends on the query position only
+//   through its 4-bit IUPAC mask: a column's 16 costs (BIG past the row's
+//   last real column), with its two deletion costs, are computed once, in
+//   the reference's operation order, into a shared-memory table, a chunk of
+//   kChunk columns at a time, by all threads together: the profile's bytes
+//   are staged there, off the column loop's dependency chain, and no thread
+//   repeats another's column arithmetic. A lane reads its cost with one
+//   shared load indexed by its mask.
+// - The V and D rows stay in registers: each thread owns K consecutive query
+//   positions, with their lane constants ((i+1)*ge, i*ge, the mask index)
+//   computed once. The insertion prefix-min is a running min inside the
+//   thread plus the two-level block scan of dp_scan.cuh: one barrier a
+//   column. The lane shifts need only the neighbouring thread's last value.
+// - The backpointer row goes out as one 4-byte store per 4 lanes.
+// - End selection needs no per-column reduction: the candidate-1 cell is
+//   owned by one thread, and the candidate-2 row argmin runs once, at column
+//   c_real-1.
+//
 // All f32 arithmetic keeps the reference's operation order through explicit
 // round-to-nearest intrinsics (the library is also built with --fmad=false),
 // so nothing contracts to FMA and the results are bit-equal to the plain
@@ -36,15 +44,18 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dp_scan.cuh"
+
 namespace {
 
 constexpr float kBig = 1e6f;
 constexpr int kCodeMatch = 1;
 constexpr int kCodeDel = 2;
 constexpr int kCodeIns = 3;
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kChunk = 256;  // profile columns staged at a time
+// query positions a thread owns at the main path's widths (M <= 2048); chosen
+// on the card between 4 (384 threads at M = 1536) and 8 (PERF.md)
+constexpr int kDefaultLanes = 4;
 
 struct DpScalars {
   float go;             // gap open
@@ -55,63 +66,30 @@ struct DpScalars {
   float inv_gap_scale;  // f32(1/_gap_scale(params))
 };
 
+// one staged column: the substitution cost for each query IUPAC mask and
+// the occupancy-scaled deletion open/extend costs
+struct Column {
+  float s[16];
+  float dgo, dge, pad0, pad1;
+};
+
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
-template <int K>
-__global__ void __launch_bounds__(kMaxThreads)
-profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ fam_idx,
-                  const uint8_t* __restrict__ qmask, const int32_t* __restrict__ lens,
-                  uint8_t* __restrict__ bp, int32_t* __restrict__ best_c,
-                  int32_t* __restrict__ best_i, float* __restrict__ raw, int B, int C,
-                  int M, DpScalars p) {
-  // double-buffered by column parity: a neighbour may still read column j's
-  // values while this thread writes column j+1's
-  __shared__ float s_part[2][kMaxThreads];  // min cand over a thread's first K-1 lanes
-  __shared__ float s_lastU[2][kMaxThreads];  // U of a thread's last lane
-  __shared__ float s_incl[kMaxThreads];      // inclusive scan of per-thread cand minima
-  __shared__ float s_wmin[kMaxWarps];
-  __shared__ float s_rv[kMaxWarps];
-  __shared__ int s_ri[kMaxWarps];
-  __shared__ float s_b1v;
-  __shared__ int s_b1j;
+// the most threads a block of K lanes a thread may have: 512 (128 registers
+// a thread) up to 8 lanes, 1024 at 16 (M up to 16384)
+#define SINA_PROFILE_MAX_THREADS(K) ((K) <= 8 ? 512 : 1024)
 
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int wl = t & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int lane0 = t * K;
-  const int ql = lens[2 * b];
-  const int cr = lens[2 * b + 1];
-  const int q1 = ql - 1;
-  const uint8_t* prof = fgq + (long long)(fam_idx ? fam_idx[b] : b) * C * 6;
-
-  // query-side constants (per lane): IUPAC bits, 1/popcount, and qs
-  int qm[K];
-  float inv[K], qs[K], Vp[K], Dp[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int i = lane0 + k;
-    qm[k] = i < M ? qmask[(long long)b * M + i] : 0;
-    const float cnt = (float)((qm[k] & 1) + ((qm[k] >> 1) & 1) + ((qm[k] >> 2) & 1) +
-                              ((qm[k] >> 3) & 1));
-    inv[k] = cnt > 0.0f ? __fdiv_rn(1.0f, fmaxf(cnt, 1.0f)) : 0.0f;
-    qs[k] = mul(cnt, inv[k]);
-    Vp[k] = kBig;
-    Dp[k] = kBig;
-  }
-  if (t == 0) {
-    s_b1v = kBig;
-    s_b1j = 0;
-  }
-  float b1v = kBig, b2v = kBig;  // candidate 1 (owner of lane ql-1), candidate 2 (thread 0)
-  int b1j = 0, b2i = 0;
-  float vprev0 = kBig;  // previous column's V at lane lane0-1
-
-  for (int j = 0; j < C; ++j) {
-    const int buf = j & 1;
+// columns [chunk * kChunk, +kChunk) of the row's profile into `dst`, one
+// (column, query mask) entry a thread at a time, in the operations of
+// profile_pallas.py:90-102 (the plain version's order)
+__device__ __forceinline__ void stage_columns(Column* dst, const uint8_t* prof, int chunk, int C,
+                                              int cr, const DpScalars& p, int t, int nthreads) {
+  for (int e = t; e < kChunk * 16; e += nthreads) {
+    const int c = e >> 4, m = e & 15;
+    const int j = chunk * kChunk + c;
+    if (j >= C) break;
     const uint8_t* col = prof + (long long)j * 6;
     const float f0 = mul((float)col[0], p.inv255);
     const float f1 = mul((float)col[1], p.inv255);
@@ -120,25 +98,91 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
     const int16_t gq = (int16_t)((uint16_t)col[4] | ((uint16_t)col[5] << 8));
     const float gap = mul((float)gq, p.inv_gap_scale);
     const float occ = add(add(add(f0, f1), f2), f3);
-    const float dgo = mul(p.go, occ);
-    const float dge = mul(p.ge, occ);
-    const float mmocc = mul(p.mm, occ);
-    const bool pad_col = j >= cr;
+    // the query side of mask m: 1/popcount and the per-letter weights
+    const float cnt = (float)((m & 1) + ((m >> 1) & 1) + ((m >> 2) & 1) + ((m >> 3) & 1));
+    const float inv = cnt > 0.0f ? __fdiv_rn(1.0f, fmaxf(cnt, 1.0f)) : 0.0f;
+    const float qs = mul(cnt, inv);
+    const float w0 = (m & 1) ? inv : 0.0f;
+    const float w1 = ((m >> 1) & 1) ? inv : 0.0f;
+    const float w2 = ((m >> 2) & 1) ? inv : 0.0f;
+    const float w3 = ((m >> 3) & 1) ? inv : 0.0f;
+    const float dot = add(add(add(mul(f0, w0), mul(f1, w1)), mul(f2, w2)), mul(f3, w3));
+    dst[c].s[m] =
+        j >= cr ? kBig : add(add(mul(p.m_minus_mm, dot), mul(mul(p.mm, occ), qs)), gap);
+    if (m == 0) {
+      dst[c].dgo = mul(p.go, occ);
+      dst[c].dge = mul(p.ge, occ);
+    }
+  }
+}
 
-    float U[K], cand[K];
+template <int K>
+__global__ void __launch_bounds__(SINA_PROFILE_MAX_THREADS(K))
+profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ fam_idx,
+                  const uint8_t* __restrict__ qmask, const int32_t* __restrict__ lens,
+                  uint8_t* __restrict__ bp, int32_t* __restrict__ best_c,
+                  int32_t* __restrict__ best_i, float* __restrict__ raw, int B, int C,
+                  int M, DpScalars p) {
+  // double-buffered by chunk parity: chunk c+1 is written while chunk c is read
+  __shared__ Column s_col[2][kChunk];
+  __shared__ dp::ScanSlots s_scan;
+  __shared__ float s_rv[dp::kMaxWarps];
+  __shared__ int s_ri[dp::kMaxWarps];
+  __shared__ float s_b1v;
+  __shared__ int s_b1j;
+
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int warp = t >> 5;
+  const int wl = t & 31;
+  const int nwarps = nthreads >> 5;
+  const int lane0 = t * K;
+  const int ql = lens[2 * b];
+  const int cr = lens[2 * b + 1];
+  const int q1 = ql - 1;
+  const uint8_t* prof = fgq + (long long)(fam_idx ? fam_idx[b] : b) * C * 6;
+
+  // lane constants: the byte offset of the lane's mask in a column's
+  // costs, (i+1)*ge, i*ge
+  int qb[K];
+  float ge_i1[K], ge_i[K], Vp[K], Dp[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = lane0 + k;
+    qb[k] = 4 * (i < M ? qmask[(long long)b * M + i] & 15 : 0);
+    ge_i1[k] = mul(add((float)i, 1.0f), p.ge);
+    ge_i[k] = mul((float)i, p.ge);
+    Vp[k] = kBig;
+    Dp[k] = kBig;
+  }
+  const float ge_lm1 = mul((float)(lane0 - 1), p.ge);
+  if (t == 0) {
+    s_b1v = kBig;
+    s_b1j = 0;
+  }
+  stage_columns(s_col[0], prof, 0, C, cr, p, t, nthreads);
+  __syncthreads();
+
+  float b1v = kBig, b2v = kBig;  // candidate 1 (owner of lane ql-1), candidate 2 (thread 0)
+  int b1j = 0, b2i = 0;
+  float vprev0 = kBig;  // previous column's V at lane lane0-1
+  int chunk = 0, jc = 0;
+  uint8_t* bp_row = bp + (long long)b * M + lane0;  // column j's row b, lane lane0
+
+  for (int j = 0; j < C; ++j) {
+    const Column& col = s_col[chunk & 1][jc];
+    const float dgo = col.dgo;
+    const float dge = col.dge;
+
+    float U[K], cand[K], ugo[K];
     int bits[K];
     float part = CUDART_INF_F;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int i = lane0 + k;
-      const float w0 = (qm[k] & 1) ? inv[k] : 0.0f;
-      const float w1 = ((qm[k] >> 1) & 1) ? inv[k] : 0.0f;
-      const float w2 = ((qm[k] >> 2) & 1) ? inv[k] : 0.0f;
-      const float w3 = ((qm[k] >> 3) & 1) ? inv[k] : 0.0f;
-      const float dot = add(add(add(mul(f0, w0), mul(f1, w1)), mul(f2, w2)), mul(f3, w3));
       const float s =
-          pad_col ? kBig : add(add(mul(p.m_minus_mm, dot), mul(mmocc, qs[k])), gap);
-      const float base = (j == 0 || i == 0) ? 1.0f : kBig;
+          *reinterpret_cast<const float*>(reinterpret_cast<const char*>(col.s) + qb[k]);
+      const float base = (j == 0 || lane0 + k == 0) ? 1.0f : kBig;
       const float d_open = add(Vp[k], dgo);
       const float d_ext = add(Dp[k], dge);
       const float dmin = fminf(d_open, d_ext);
@@ -157,56 +201,52 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
       }
       U[k] = u;
       bits[k] |= code;
-      cand[k] = sub(add(u, p.go), mul(add((float)i, 1.0f), p.ge));
+      ugo[k] = add(u, p.go);
+      cand[k] = sub(ugo[k], ge_i1[k]);
       if (k < K - 1) part = fminf(part, cand[k]);
     }
     const float tot = fminf(part, cand[K - 1]);
-    s_part[buf][t] = part;
-    s_lastU[buf][t] = U[K - 1];
+    const dp::ScanOut sc =
+        dp::block_min_scan(tot, part, U[K - 1], s_scan, j & 1, warp, wl);
 
-    // block inclusive min-scan of the per-thread minima
-    float incl = tot;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(kFull, incl, off);
-      if (wl >= off) incl = fminf(incl, o);
+    // the next chunk's columns: the buffer's previous reads (chunk-1) are
+    // behind the barrier just passed, and its first read (column
+    // (chunk+1)*kChunk) comes after at least one more barrier
+    if (jc == 0 && (chunk + 1) * kChunk < C) {
+      stage_columns(s_col[(chunk + 1) & 1], prof, chunk + 1, C, cr, p, t, nthreads);
     }
-    if (wl == 31) s_wmin[warp] = incl;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) incl = fminf(incl, s_wmin[w]);
-    s_incl[t] = incl;
-    __syncthreads();
 
     // lane lane0-1 (the previous thread's last lane): its I and U
     float iprev0 = kBig, uprev0 = kBig;
     float run = CUDART_INF_F;  // min cand over lanes < lane0
     if (t > 0) {
-      run = s_incl[t - 1];
-      const float before_last = fminf(t > 1 ? s_incl[t - 2] : CUDART_INF_F, s_part[buf][t - 1]);
-      iprev0 = add(fminf(before_last, 1.0f), mul((float)(lane0 - 1), p.ge));
-      uprev0 = s_lastU[buf][t - 1];
+      run = sc.excl;
+      iprev0 = add(fminf(sc.tail, 1.0f), ge_lm1);
+      uprev0 = sc.prev_last;
     }
     float Vrow[K];
-    float iprev = iprev0, uprev = uprev0;
+    float iprev = iprev0;
+    float uprev_go = add(uprev0, p.go);
     uint32_t word = 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int i = lane0 + k;
-      const float irow = add(fminf(run, 1.0f), mul((float)i, p.ge));
+      const float irow = add(fminf(run, 1.0f), ge_i[k]);
       run = fminf(run, cand[k]);
-      const bool ins_opened = add(uprev, p.go) <= add(iprev, p.ge);
+      const bool ins_opened = uprev_go <= add(iprev, p.ge);
       const bool take_i = irow <= U[k];
       Vrow[k] = take_i ? irow : U[k];
-      const int cell = (take_i ? kCodeIns : (bits[k] & 3)) | (bits[k] & 4) | (ins_opened ? 8 : 0);
+      // bits: the code in bits 0-1 (never kCodeIns), deletion opened in bit 2
+      const int cell = (take_i ? bits[k] | kCodeIns : bits[k]) | (ins_opened ? 8 : 0);
       word |= (uint32_t)cell << (8 * (k & 3));
       if ((k & 3) == 3) {
         if (i < M) {
-          *reinterpret_cast<uint32_t*>(bp + ((long long)j * B + b) * M + i - 3) = word;
+          *reinterpret_cast<uint32_t*>(bp_row + k - 3) = word;
         }
         word = 0;
       }
       iprev = irow;
-      uprev = U[k];
+      uprev_go = ugo[k];
     }
     vprev0 = (iprev0 <= uprev0) ? iprev0 : uprev0;
 
@@ -239,8 +279,8 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(kFull, v, off);
-        const int oi = __shfl_down_sync(kFull, vi, off);
+        const float ov = __shfl_down_sync(dp::kFull, v, off);
+        const int oi = __shfl_down_sync(dp::kFull, vi, off);
         if (ov < v || (ov == v && oi < vi)) {
           v = ov;
           vi = oi;
@@ -264,6 +304,11 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) Vp[k] = Vrow[k];
+    bp_row += (long long)B * M;
+    if (++jc == kChunk) {
+      jc = 0;
+      ++chunk;
+    }
   }
 
   __syncthreads();
@@ -280,20 +325,45 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
   }
 }
 
-template <int K>
-cudaError_t launch(const void* fgq, const void* fam_idx, const void* qmask, const void* lens,
-                   void* bp, void* best_c, void* best_i, void* raw, int B, int C, int M,
-                   DpScalars p, cudaStream_t stream) {
-  const int threads = ((M + K - 1) / K + 31) / 32 * 32;
-  profile_dp_kernel<K><<<B, threads, 0, stream>>>(
-      static_cast<const uint8_t*>(fgq), static_cast<const int32_t*>(fam_idx),
-      static_cast<const uint8_t*>(qmask), static_cast<const int32_t*>(lens),
-      static_cast<uint8_t*>(bp), static_cast<int32_t*>(best_c),
-      static_cast<int32_t*>(best_i), static_cast<float*>(raw), B, C, M, p);
-  return cudaGetLastError();
+// kDefaultLanes, doubled until the block fits (M <= 2048 at 4 lanes, 4096
+// at 8, 16384 at 16)
+int lanes_for(int M) {
+  int K = kDefaultLanes;
+  while (K < 16 && M > K * 512) K *= 2;
+  return K;
 }
 
+int threads_for(int M, int K) { return ((M + K - 1) / K + 31) / 32 * 32; }
+
+const void* kernel_for(int K) {
+  switch (K) {
+    case 4: return reinterpret_cast<const void*>(&profile_dp_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(&profile_dp_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(&profile_dp_kernel<16>);
+    default: return nullptr;
+  }
+}
+
+
 }  // namespace
+
+// The launch plan for M query positions: out[0..3] = lanes a thread,
+// threads, static shared memory bytes a block, registers a thread. Returns a
+// cudaError_t (cudaErrorInvalidValue for an unsupported M).
+extern "C" int sina_profile_dp_plan(int M, long long* out) {
+  if (M % 4 != 0 || M <= 0) return (int)cudaErrorInvalidValue;
+  const int K = lanes_for(M);
+  const int threads = threads_for(M, K);
+  if (threads > SINA_PROFILE_MAX_THREADS(K)) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel_for(K));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = K;
+  out[1] = threads;
+  out[2] = (long long)attr.sharedSizeBytes;
+  out[3] = attr.numRegs;
+  return 0;
+}
 
 // fgq (U, C, 6) uint8; fam_idx (B,) int32 or null (row b reads profile b);
 // qmask (B, M) uint8; lens (B, 2) int32 = (qlen, c_real); bp (C, B, M) uint8;
@@ -305,17 +375,22 @@ extern "C" int sina_profile_dp(const void* fgq, const void* fam_idx, const void*
                                float m_minus_mm, float mm, float inv255,
                                float inv_gap_scale, void* stream) {
   if (B == 0) return 0;
-  const DpScalars p{go, ge, m_minus_mm, mm, inv255, inv_gap_scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M % 4 != 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  if (M <= 4 * kMaxThreads) {
-    return (int)launch<4>(fgq, fam_idx, qmask, lens, bp, best_c, best_i, raw, B, C, M, p, s);
-  }
-  if (M <= 8 * kMaxThreads) {
-    return (int)launch<8>(fgq, fam_idx, qmask, lens, bp, best_c, best_i, raw, B, C, M, p, s);
-  }
-  if (M <= 16 * kMaxThreads) {
-    return (int)launch<16>(fgq, fam_idx, qmask, lens, bp, best_c, best_i, raw, B, C, M, p, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (M % 4 != 0 || M <= 0 || C < 0) return (int)cudaErrorInvalidValue;
+  const int K = lanes_for(M);
+  const int threads = threads_for(M, K);
+  if (threads > SINA_PROFILE_MAX_THREADS(K)) return (int)cudaErrorInvalidValue;
+  DpScalars p{go, ge, m_minus_mm, mm, inv255, inv_gap_scale};
+  const uint8_t* fgq_p = static_cast<const uint8_t*>(fgq);
+  const int32_t* fam_p = static_cast<const int32_t*>(fam_idx);
+  const uint8_t* qm_p = static_cast<const uint8_t*>(qmask);
+  const int32_t* lens_p = static_cast<const int32_t*>(lens);
+  uint8_t* bp_p = static_cast<uint8_t*>(bp);
+  int32_t* bc_p = static_cast<int32_t*>(best_c);
+  int32_t* bi_p = static_cast<int32_t*>(best_i);
+  float* raw_p = static_cast<float*>(raw);
+  void* args[] = {&fgq_p, &fam_p, &qm_p, &lens_p, &bp_p, &bc_p, &bi_p, &raw_p, &B, &C, &M, &p};
+  const cudaError_t e = cudaLaunchKernel(kernel_for(K), dim3(B), dim3(threads), args, 0,
+                                         static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

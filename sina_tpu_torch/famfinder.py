@@ -162,8 +162,10 @@ class FamFinder:
         self, mask_list: list[np.ndarray], k: int
     ) -> tuple[np.ndarray, np.ndarray]:
         """Device-side scoring + top-k: only the (B, k) candidate
-        lists cross to the host.  Ties resolve to the lowest id
-        (deviation from kmer_search.cpp:412 which prefers the
+        lists cross to the host.  Ties resolve as in the JAX package
+        (ops/kmer_kernel.score_topk: the lowest id, and by group rank
+        at the k-th value from 32,768 padded references on; a
+        deviation from kmer_search.cpp:412, which prefers the
         highest)."""
         t = get_timer("Kmer Search")
         with t.section("extract kmers"):

@@ -90,14 +90,15 @@ def pack_graph_host(mask, preds, is_start, is_end, n_real):
 
 
 def pick_k_ring(maxd: int) -> int:
-    """The reference's routing threshold (graph_pallas.py:671-677): 0
-    when a predecessor distance does not fit the kernel's 5-bit
-    fields, else the ring depth.  Any depth above maxd gives the same
-    result, so the ring is the next power of two above maxd (at most
-    32) and no deeper than the bucket needs."""
+    """The ring depth of a bucket whose largest predecessor distance is
+    maxd: 0 when a distance does not fit the kernel's 5-bit fields (the
+    reference's routing threshold, graph_pallas.py:671-677), else
+    maxd + 1 (at least 2).  Any depth above maxd gives the same result;
+    the smallest one keeps the kernel's ring in shared memory at the
+    widest buckets."""
     if maxd >= MAX_DIST:
         return 0
-    return max(2, 1 << int(maxd).bit_length())
+    return max(2, int(maxd) + 1)
 
 
 def node_costs(pos, weight, col_weights, subst, params: DpParams) -> dict[str, torch.Tensor]:
@@ -380,7 +381,7 @@ def graph_dp_plain(pos, mask, weight, predbits, flags, qmask, qlen,
     int32, col_weights (B, W) f32; max_insert (B, N) int32 selects the
     bounded insertion track (--insertion forbid), subst (B, 4, 4) f32
     the substitution-matrix scheme; both may be given.  k_ring must
-    exceed the largest predecessor distance.  Returns (bp (B, N, M)
+    exceed the largest predecessor distance (pick_k_ring).  Returns (bp (B, N, M)
     int16, best_j (B,) int32, best_i (B,) int32, raw (B,) f32)."""
     _check_operands(pos, mask, weight, predbits, flags, qmask, qlen,
                     col_weights, max_insert, subst)
@@ -405,8 +406,10 @@ def node_table(costs, mask, predbits, flags, max_insert) -> torch.Tensor:
 def graph_dp(pos, mask, weight, predbits, flags, qmask, qlen, col_weights,
              max_insert=None, subst=None, *, params: DpParams, k_ring: int):
     """The graph DP; see graph_dp_plain for the contract.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel (or
-    raise)."""
+    take the plain version; CUDA tensors launch the kernel (or raise):
+    its ring of k_ring node rows in shared memory where it fits, else
+    in a global scratch (counted in kernels.launches
+    "graph_dp_global_ring"), chosen by shape before the launch."""
     if qmask.device.type == "cpu":
         return graph_dp_plain(pos, mask, weight, predbits, flags, qmask, qlen,
                               col_weights, max_insert, subst,
@@ -428,30 +431,46 @@ def graph_dp(pos, mask, weight, predbits, flags, qmask, qlen, col_weights,
                     col_weights, max_insert, subst)
     B, N = pos.shape
     M = qmask.shape[1]
-    if not 2 <= k_ring <= MAX_DIST or k_ring & (k_ring - 1):
-        raise ValueError(f"k_ring must be a power of two in [2, 32] (got {k_ring})")
+    if not 2 <= k_ring <= MAX_DIST:
+        raise ValueError(f"k_ring must be in [2, 32] (got {k_ring})")
     if not 0 < M <= 16384:
         raise ValueError(f"graph_dp kernel needs 1 <= M <= 16384 (M={M})")
+    aspace = max_insert is not None
+    cfg = graph_dp_plan(M, k_ring, aspace)
     costs = node_costs(pos, weight, col_weights, subst, params)
     table = node_table(costs, mask, predbits, flags, max_insert)
     smat = (subst.reshape(B, 16).contiguous() if subst is not None
             else torch.zeros((B, 16), dtype=torch.float32, device=dev))
     bp = torch.empty((B, N, M), dtype=torch.int16, device=dev)
     best = torch.empty((B, 8), dtype=torch.float32, device=dev)
-    lib = kernels.lib()
-    # per-query ring of the last K V and D rows, plus each thread's
-    # copy of V at the lane left of its own (see csrc/graph_dp.cu)
-    ring = torch.empty((B, lib.sina_graph_dp_scratch(M, k_ring)),
-                       dtype=torch.float32, device=dev)
-    err = lib.sina_graph_dp(
+    # the global-ring route's per-query scratch: the last K V and D rows
+    # plus each thread's copy of V at the lane left of its own
+    ring = (None if cfg["shared_ring"] else
+            torch.empty((B, cfg["scratch"]), dtype=torch.float32, device=dev))
+    err = kernels.lib().sina_graph_dp(
         table.data_ptr(), qmask.data_ptr(), qlen.data_ptr(), smat.data_ptr(),
-        bp.data_ptr(), best.data_ptr(), ring.data_ptr(), B, N, M, k_ring,
-        int(max_insert is not None), int(subst is not None),
+        bp.data_ptr(), best.data_ptr(), None if ring is None else ring.data_ptr(),
+        B, N, M, k_ring, int(aspace), int(subst is not None),
         params.match, params.mismatch, kernels.stream_ptr(dev),
     )
     kernels.check(err, "graph_dp")
     kernels.launches["graph_dp"] += 1
+    if ring is not None:
+        kernels.launches["graph_dp_global_ring"] += 1
     return (bp, *_decode_best(best, qlen))
+
+
+def graph_dp_plan(M: int, k_ring: int, aspace: bool) -> dict:
+    """The graph DP kernel's launch plan (needs the card): lanes a
+    thread, threads, whether the ring of k_ring node rows lives in
+    shared memory (else the global-ring route), dynamic and static
+    shared memory bytes a block, registers a thread, floats of global
+    ring scratch a query, and the deepest ring shared memory holds."""
+    lib = kernels.lib()
+    out = kernels.plan(lib.sina_graph_dp_plan, M, k_ring, int(aspace), n=8)
+    keys = ("lanes", "threads", "shared_ring", "dyn_smem", "static_smem",
+            "regs", "scratch", "max_shared_ring")
+    return dict(zip(keys, out))
 
 
 def _walk(bp_b: np.ndarray, start_b: np.ndarray, j: int, i: int,

@@ -30,6 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("kmer_score.cu", "kmer_dense.cu", "profile_dp.cu",
            "chain_traceback.cu", "graph_dp.cu", "graph_traceback.cu")
+# included by the sources (the DPs' block scan)
+HEADERS = ("dp_scan.cuh",)
 # --fmad=false: the DPs must keep the reference's f32 rounding (no
 # mul+add contraction to FMA other than the ones written out) to stay
 # bit-equal to their plain versions
@@ -41,9 +43,11 @@ NVCC_FLAGS = (
 launches = {"kmer_score": 0, "kmer_score_dense": 0,
             "profile_dp": 0, "chain_traceback": 0,
             "graph_dp": 0, "graph_traceback": 0,
-            # not a kernel: graph buckets that took the dense route
-            # (ops/align_kernel.poa_dp_dense), counted where chosen
-            "graph_dense_route": 0}
+            # not kernels: graph buckets that took the dense route
+            # (ops/align_kernel.poa_dp_dense), and graph_dp launches whose
+            # ring did not fit shared memory and took the global-ring
+            # route (csrc/graph_dp.cu), counted where chosen
+            "graph_dense_route": 0, "graph_dp_global_ring": 0}
 
 _lib = None
 build_seconds: float | None = None
@@ -71,7 +75,7 @@ def _nvcc() -> str:
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libsina_kernels-{h.hexdigest()[:16]}.so"
 
@@ -130,12 +134,14 @@ def lib() -> ctypes.CDLL:
             P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F, P,
         ]
         so.sina_profile_dp.restype = I
+        so.sina_profile_dp_plan.argtypes = [I, P]
+        so.sina_profile_dp_plan.restype = I
         so.sina_chain_traceback.argtypes = [P, P, P, P, I, I, I, P]
         so.sina_chain_traceback.restype = I
         so.sina_graph_dp.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
         so.sina_graph_dp.restype = I
-        so.sina_graph_dp_scratch.argtypes = [I, I]
-        so.sina_graph_dp_scratch.restype = LL
+        so.sina_graph_dp_plan.argtypes = [I, I, I, P]
+        so.sina_graph_dp_plan.restype = I
         so.sina_graph_traceback.argtypes = [P, P, P, P, P, P, I, I, I, P]
         so.sina_graph_traceback.restype = I
         so.sina_cuda_error_string.argtypes = [I]
@@ -149,6 +155,14 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = lib().sina_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} kernel failed: CUDA error {err} ({msg})")
+
+
+def plan(fn, *args: int, n: int) -> list[int]:
+    """Call a C launch-plan function fn(*args, long long out[n]) and
+    return out; raises on a CUDA error or an unsupported shape."""
+    out = (ctypes.c_longlong * n)()
+    check(fn(*args, out), fn.__name__)
+    return list(out)
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -118,11 +118,7 @@ def top_k_lowest_id(scores: torch.Tensor, k: int):
     lax.top_k (sina_tpu/ops/kmer_kernel.py:426-432) on every device
     (torch.topk promises no tie order on CUDA).  Ranks the distinct
     int64 key (score << 32) | (0xFFFFFFFF - id).  scores (B, S) int32
-    with S < 2**32 -> (values (B, k) int32, ids (B, k) int32).
-
-    Deliberate difference from the reference at >= 32,768 refs: its
-    grouped_top_k returns the same values but resolves ties at the
-    k-th value by group rank; this is exact lowest-id at every size."""
+    with S < 2**32 -> (values (B, k) int32, ids (B, k) int32)."""
     S = scores.shape[1]
     ids = torch.arange(S, device=scores.device, dtype=torch.int64)
     key = (scores.to(torch.int64) << 32) | (0xFFFFFFFF - ids)
@@ -132,9 +128,42 @@ def top_k_lowest_id(scores: torch.Tensor, k: int):
     return vals, tid
 
 
+# padded widths from which famfinder ranks with grouped_top_k
+# (sina_tpu/famfinder.py:41)
+GROUPED_MIN_WIDTH = 32768
+
+
+def grouped_top_k(scores: torch.Tensor, k: int):
+    """The JAX package's grouped_top_k (sina_tpu/ops/kmer_kernel.py:
+    396-422), step for step: maxima of groups of 8, the top C =
+    min(max(k, 256), S/8) groups, the top k of their 8C members, and
+    ids cand[sel // 8] * 8 + sel % 8.  Values are exact; a tie at the
+    k-th value resolves by group rank, as there.  Each stage breaks
+    ties to the lowest position, as lax.top_k does.  A plain top-k
+    where S % 8 or 16C >= S, as there."""
+    B, S = scores.shape
+    C = min(max(k, 256), S // 8)
+    if S % 8 or C * 8 * 2 >= S:
+        return top_k_lowest_id(scores, min(k, S))
+    g = scores.view(B, S // 8, 8)
+    _, cand = top_k_lowest_id(g.amax(dim=2), C)
+    cand = cand.long()
+    sub = torch.gather(g, 1, cand[:, :, None].expand(B, C, 8)).reshape(B, 8 * C)
+    vals, sel = top_k_lowest_id(sub, min(k, 8 * C))
+    sel = sel.long()
+    ids = torch.gather(cand, 1, sel // 8) * 8 + sel % 8
+    return vals, ids.to(torch.int32)
+
+
 def score_topk(P: torch.Tensor, kmers: torch.Tensor, k: int) -> torch.Tensor:
     """Scoring + top-k in one device-resident step; returns the packed
     (B, 2k) int32 [values | ids] (one device-to-host copy), the layout
-    of sina_tpu/famfinder.py _score_topk_compiled."""
-    vals, ids = top_k_lowest_id(kmer_scores(P, kmers), k)
+    of sina_tpu/famfinder.py _score_topk_compiled: grouped_top_k from
+    GROUPED_MIN_WIDTH padded references on, a plain top-k below, so
+    the ids equal the JAX package's at every size."""
+    scores = kmer_scores(P, kmers)
+    if scores.shape[1] >= GROUPED_MIN_WIDTH:
+        vals, ids = grouped_top_k(scores, k)
+    else:
+        vals, ids = top_k_lowest_id(scores, k)
     return torch.cat([vals, ids], dim=1)

@@ -211,6 +211,15 @@ def profile_dp(fgq, qmask, lens, params: DpParams, fam_idx=None):
     return bp, best_c, best_i, raw
 
 
+def profile_dp_plan(M: int) -> dict:
+    """The profile DP kernel's launch plan (needs the card): lanes a
+    thread, threads, static shared memory bytes a block, registers a
+    thread."""
+    lib = kernels.lib()
+    out = kernels.plan(lib.sina_profile_dp_plan, M, n=4)
+    return dict(zip(("lanes", "threads", "static_smem", "regs"), out))
+
+
 def _walk(bp_b: np.ndarray, j: int, i: int, emit_b: np.ndarray) -> None:
     """One query's traceback state machine
     (sina_tpu/ops/profile_pallas.py:324-389), writing emit[i] = j for

@@ -141,6 +141,26 @@ def test_topk_lowest_id_on_cuda(cuda):
     assert ids.cpu().tolist() == [[1, 2, 4, 7, 0]]
 
 
+def test_grouped_topk_on_cuda_equals_cpu(cuda):
+    """score_topk at 100,352 padded references (the grouped path) with
+    the k-th value tied among thousands: the same values and ids on the
+    card as on the CPU, at the search's k and famfinder's."""
+    rng = np.random.default_rng(5)
+    S, L = 100_352, 48
+    c = rng.integers(0, 13, S)
+    c[rng.choice(S, 8, replace=False)] = np.arange(40, 32, -1)
+    bits = np.arange(L + 1)[:, None] < c[None, :]
+    bits[-1] = False
+    P = torch.from_numpy(np.packbits(bits, axis=1, bitorder="little"))
+    kmers = np.tile(np.arange(L, dtype=np.int32), (4, 1))
+    kmers[1, ::2] = L
+    kmers[2] = rng.integers(0, L + 1, L)
+    kmers = torch.from_numpy(kmers)
+    for k in (1000, 256, 8):
+        got = kk.score_topk(P.to(cuda), kmers.to(cuda), k)
+        _equal([got], [kk.score_topk(P, kmers, k)])
+
+
 def _profiles(seed, B, C, M):
     rng = np.random.default_rng(seed)
     cons = rng.integers(0, 4, (B, C))
@@ -176,6 +196,22 @@ def test_profile_dp_and_traceback_match_plain(cuda, B, C, M):
     _equal(got, want)
     emit = pk.chain_traceback(*got[:3])
     _equal([emit], [pk.chain_traceback_plain(*want[:3])])
+
+
+@pytest.mark.parametrize(
+    "B,C,M,lanes",
+    [(3, 1, 64, 4), (2, 513, 132, 4), (4, 300, 1536, 4), (2, 257, 2052, 8),
+     (2, 1, 4096, 8), (2, 257, 4100, 16), (2, 1, 6000, 16)],
+)
+def test_profile_dp_lanes_and_staging(cuda, B, C, M, lanes):
+    """C = 1, C not a multiple of the kernel's 256-column staging chunk,
+    and the 4, 8 and 16 lanes-a-thread instantiations, which the kernel
+    takes by M (4 up to 2048, 8 up to 4096, 16 above)."""
+    fgq, qmask, lens = _profiles(B * C + M + lanes, B, C, M)
+    params = DpParams()
+    got = pk.profile_dp(fgq.to(cuda), qmask.to(cuda), lens.to(cuda), params)
+    _equal(got, pk.profile_dp_plain(fgq, qmask, lens, params))
+    assert pk.profile_dp_plan(M)["lanes"] == lanes
 
 
 def test_profile_dp_fam_idx_gather(cuda):
@@ -271,13 +307,62 @@ def test_graph_dp_ring_depth_does_not_change_the_result(cuda):
     _equal(small, full)
 
 
+@pytest.mark.parametrize("M", [1536, 2048])
+@pytest.mark.parametrize("mode", ["simple", "forbid"])
+def test_graph_dp_ring_at_the_shared_memory_limit(cuda, mode, M):
+    """The deepest ring that fits shared memory (the shared-ring route)
+    and one slot deeper (the global-ring route, counted in
+    kernels.launches["graph_dp_global_ring"]), at the main path's M
+    buckets, in simple and forbid mode: both equal the plain version."""
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    ops, budget, width, k = _graph_bucket(M + 7, 2, 3, M)
+    max_ins = budget if mode == "forbid" else None
+    args = [*ops.values(), torch.ones((2, width)), max_ins]
+    kmax = gk.graph_dp_plan(M, k, mode == "forbid")["max_shared_ring"]
+    assert k <= kmax < 32
+    for depth, shared in ((kmax, True), (kmax + 1, False)):
+        plan = gk.graph_dp_plan(M, depth, mode == "forbid")
+        assert bool(plan["shared_ring"]) == shared
+        slot = (2 * plan["lanes"] + 1) * plan["threads"]  # V, D and V left of each thread
+        assert plan["scratch"] == (0 if shared else depth * slot)
+        before = dict(kernels.launches)
+        got = gk.graph_dp(*[a.to(cuda) if a is not None else None for a in args],
+                          params=DpParams(), k_ring=depth)
+        assert kernels.launches["graph_dp"] == before["graph_dp"] + 1
+        assert (kernels.launches["graph_dp_global_ring"]
+                == before["graph_dp_global_ring"] + (0 if shared else 1))
+        _equal(got, gk.graph_dp_plain(*args, params=DpParams(), k_ring=depth))
+
+
+@pytest.mark.parametrize("lanes,M", [(4, 1536), (8, 3000), (16, 5008), (32, 8200)])
+@pytest.mark.parametrize("mode", ["simple", "forbid_matrix"])
+def test_graph_dp_lanes_match_plain(cuda, mode, lanes, M):
+    """The 4, 8, 16 and 32 lanes-a-thread instantiations, which the
+    kernel takes by M (4 up to 2048, doubling with each doubling of M):
+    the main path's bucket and one M past each step."""
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    ops, budget, width, k = _graph_bucket(lanes, 2, 9, M)
+    rng = np.random.default_rng(lanes)
+    cw = torch.from_numpy(rng.uniform(0.5, 2.0, (2, width)).astype(np.float32))
+    extra = [None, None]
+    if mode == "forbid_matrix":
+        extra = [budget, torch.from_numpy(rng.uniform(-2, 2, (2, 4, 4)).astype(np.float32))]
+    args = [*ops.values(), cw, *extra]
+    got = gk.graph_dp(*[a.to(cuda) if a is not None else None for a in args],
+                      params=DpParams(), k_ring=k)
+    _equal(got, gk.graph_dp_plain(*args, params=DpParams(), k_ring=k))
+    assert gk.graph_dp_plan(M, k, "forbid" in mode)["lanes"] == lanes
+
+
 def test_graph_dp_rejects_bad_operands(cuda):
     from sina_tpu_torch.ops import graph_kernel as gk
 
     ops, _, width, k = _graph_bucket(4, 1, 0, 64)
     args = [a.to(cuda) for a in ops.values()] + [torch.ones((1, width), device=cuda)]
     with pytest.raises(ValueError, match="k_ring"):
-        gk.graph_dp(*args, params=DpParams(), k_ring=12)
+        gk.graph_dp(*args, params=DpParams(), k_ring=33)
     bad = list(args)
     bad[3] = bad[3].long()
     with pytest.raises(TypeError):

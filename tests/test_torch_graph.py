@@ -210,6 +210,6 @@ def test_pack_graph_host_native_matches_numpy_and_reference(bucket):
     assert got[1].dtype == np.int32 and got[2].dtype == np.uint8
 
 
-@pytest.mark.parametrize("maxd,k", [(0, 2), (1, 2), (2, 4), (8, 16), (10, 16), (31, 32), (32, 0)])
+@pytest.mark.parametrize("maxd,k", [(0, 2), (1, 2), (2, 3), (8, 9), (10, 11), (31, 32), (32, 0)])
 def test_pick_k_ring(maxd, k):
     assert gk.pick_k_ring(maxd) == k

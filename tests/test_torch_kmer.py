@@ -175,29 +175,84 @@ def test_topk_exact_below_32768(k):
 
 @pytest.mark.parametrize("k", [8, 256])
 def test_topk_at_32768_values_exact_ids_lowest(k):
-    """At >= 32,768 refs the reference's grouped_top_k keeps the exact
-    values but orders equal values by group rank; the port stays exact
-    lowest-id.  Ids must agree wherever the k-th value is untied."""
+    """At >= 32,768 padded refs the JAX package ranks with
+    grouped_top_k, which orders equal values at the k-th value by
+    group rank; the port's score_topk takes the same path there, so
+    values and ids are equal, tie order included."""
     rng = np.random.default_rng(8)
     P, kmers = _tied_index(rng, 32768)
     rv, ri = _split(np.asarray(_score_topk_compiled(k)(jnp.asarray(P), jnp.asarray(kmers))), k)
     gv, gi = _split(kk.score_topk(torch.from_numpy(P), torch.from_numpy(kmers), k).numpy(), k)
     np.testing.assert_array_equal(gv, rv)
-    scores = kk.kmer_scores_plain(torch.from_numpy(P), torch.from_numpy(kmers)).numpy()
-    untied_rows = 0
-    for b in range(len(kmers)):
-        kth = gv[b, -1]
-        # the port: for each value, the lowest ids holding it, ascending
-        for v in np.unique(gv[b]):
-            have = np.flatnonzero(scores[b] == v)
-            np.testing.assert_array_equal(gi[b][gv[b] == v], have[: (gv[b] == v).sum()])
-            assert set(ri[b][rv[b] == v]) <= set(have.tolist())
-            if v > kth:
-                assert set(ri[b][rv[b] == v]) == set(gi[b][gv[b] == v])
-        if (scores[b] == kth).sum() == (gv[b] == kth).sum():
-            untied_rows += 1
-            np.testing.assert_array_equal(np.sort(gi[b]), np.sort(ri[b]))
-            if len(np.unique(gv[b])) == k:
-                np.testing.assert_array_equal(gi[b], ri[b])
-    if k == 8:
-        assert untied_rows >= 1
+    np.testing.assert_array_equal(gi, ri)
+
+
+@pytest.mark.parametrize("n_refs,k", [(4096, 1000), (32768, 1000), (100352, 8),
+                                      (100352, 256), (100352, 1000)])
+def test_topk_equals_jax_with_heavy_ties(n_refs, k):
+    """k = 1000 (the search's candidates) and the 100,352 padded
+    references of a 100k-reference index, on a matrix whose k-th value
+    is tied among thousands of references: values and ids equal to
+    _score_topk_compiled.  Where the grouped path runs with a tied k-th
+    value, its ids differ from a flat lowest-id top-k's, so the test
+    tells the two apart."""
+    rng = np.random.default_rng(n_refs + k)
+    P, kmers = _tied_index(rng, n_refs)
+    rv, ri = _split(np.asarray(_score_topk_compiled(k)(jnp.asarray(P), jnp.asarray(kmers))), k)
+    gv, gi = _split(kk.score_topk(torch.from_numpy(P), torch.from_numpy(kmers), k).numpy(), k)
+    np.testing.assert_array_equal(gv, rv)
+    np.testing.assert_array_equal(gi, ri)
+    _, flat = kk.top_k_lowest_id(kk.kmer_scores_plain(torch.from_numpy(P),
+                                                      torch.from_numpy(kmers)), k)
+    # _tied_index's top 8 scores are distinct: at k = 8 nothing is tied
+    grouped_tied = n_refs >= kk.GROUPED_MIN_WIDTH and 16 * max(k, 256) < n_refs and k > 8
+    assert np.array_equal(flat.numpy(), gi) != grouped_tied
+
+
+@pytest.fixture(scope="module")
+def synthetic_index():
+    """A JAX-package KmerIndex over 100,000 synthetic references of
+    0-12 random non-fast 4-mers each (100,352 padded): a query's scores
+    are small counts, tied across thousands of references."""
+    rng = np.random.default_rng(100)
+    n_seqs = 100_000
+    counts = rng.integers(0, 13, n_seqs)
+    offsets = np.zeros(n_seqs + 1, np.int64)
+    offsets[1:] = np.cumsum(counts)
+    kmers = rng.integers(0, 4 ** 4, int(offsets[-1])).astype(np.int32)
+    return KmerIndex(4, False, n_seqs, kmers, offsets)
+
+
+@pytest.mark.parametrize("k", [8, 256, 1000])
+def test_famfinder_score_topk_equals_jax_at_100352(synthetic_index, k):
+    """FamFinder.score_topk on a JAX-package index of 100,000
+    references (100,352 padded) carried into the port, against the JAX
+    package's single-device scoring + top-k on the same index with its
+    row padding and id masking (FamFinder.score_topk without a mesh)."""
+    from sina_tpu.famfinder import FamFinder as JaxFamFinder
+    from sina_tpu_torch import famfinder as port_famfinder
+    from sina_tpu_torch import testing as port_testing
+
+    rng = np.random.default_rng(100 + k)
+    idx = synthetic_index
+    masks = [(1 << rng.integers(0, 4, n)).astype(np.uint8) for n in (300, 120, 700)]
+    kmers, _ = query_kmers_padded(masks, idx.k, fast=idx.fast)
+    P = idx.dense_packed()
+    assert 8 * P.shape[1] == 100_352
+    padded = JaxFamFinder._pad_rows(kmers, P.shape[0] - 1)
+    packed = np.asarray(_score_topk_compiled(k)(jnp.asarray(P), jnp.asarray(padded)))
+    rv, ri = packed[:3, :k], packed[:3, k:]
+    pad = ri >= idx.n_seqs
+    rv, ri = np.where(pad, -1, rv), np.where(pad, 0, ri)
+
+    db = port_testing.make_reference(n_seqs=20, n_core=100, width=200, seed=3)
+    finder = port_famfinder.FamFinder(db, port_famfinder.FamFinderConfig(), CPU)
+    finder.index = carry(idx)
+    gv, gi = finder.score_topk(masks, k)
+    np.testing.assert_array_equal(gv, rv)
+    np.testing.assert_array_equal(gi, ri)
+    if k >= 256:
+        # heavy ties: more references hold the k-th value than the top-k keeps
+        scores = finder.score_batch(masks)
+        for b in range(3):
+            assert (scores[b] == gv[b, -1]).sum() > (gv[b] == gv[b, -1]).sum()
