@@ -11,9 +11,12 @@ Phases, each printing a line:
      source, all started together);
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (exact), with both times and the card's bound;
-     the two DPs with their launch plans (threads, registers, shared
-     memory a block) and their times from another run before the
-     redesign beside the new ones; the graph DP's global-ring route
+     the two DPs and the two tracebacks with their launch plans
+     (threads, registers, shared memory a block) and their times from
+     another run before the redesign beside the new ones; each
+     traceback also one launch alone, warm and cold (L2 flushed before
+     it), with its longest walk's steps and the time a step; the graph
+     DP's global-ring route
      (its ring one slot deeper than shared memory holds) on the same
      bucket;
      the dense int8 scorer on a (4**9+1) x 16,384 {0,1} matrix (the
@@ -136,14 +139,20 @@ GRAPH_INSTS_PER_PRED_CELL = (11, 3)
 # end node and query position: end candidate 2 4 (1 integer)
 GRAPH_INSTS_PER_NODE = (8, 1)
 GRAPH_INSTS_PER_END_CELL = (4, 1)
-# the DPs' times before their redesign for this card (PERF.md section 6,
-# PR 3's chip runs on an NVIDIA H100 80GB HBM3 at 700 W, same shapes):
-# printed beside this run's, so the ratio holds both runs' spread
+# the kernels' times before their redesign for this card (PERF.md section
+# 6 names the runs; same shapes, an NVIDIA H100 80GB HBM3 at 700 W; the
+# graph traceback's in the simple mode); printed beside this run's, so
+# the ratio holds both runs' spread
 BEFORE_MS = {"profile_dp": 2.046, "graph_dp simple": 8.926,
              "graph_dp weighted": 8.883, "graph_dp aspace": 11.120,
-             "graph_dp matrix": 10.980}
+             "graph_dp matrix": 10.980, "chain_traceback": 0.814,
+             "graph_traceback": 0.640}
 # the launches each DP time is the mean of
 DP_REPS = 10
+# the launches each traceback time is the mean of, and the bytes written
+# before a cold launch, which leave none of its data in the 50 MB L2
+TB_REPS = 5
+FLUSH_BYTES = 128 << 20
 
 KERNELS = {
     "kmer_score": ("sina_tpu_torch/csrc/kmer_score.cu",
@@ -208,6 +217,47 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_launch_ms(fn, reps: int, flush=None) -> float:
+    """Mean device time of one launch of fn(), each of `reps` launches
+    timed alone by CUDA events around it, the card kept busy while the
+    host enqueues it (so the host's time stays out).  With `flush` (a
+    tensor larger than L2), the tensor is written before each launch,
+    so the launch reads its data from device memory."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        if flush is not None:
+            flush.add_(1)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def traceback_walk_times(name: str, fn, warm_ms: float, steps, plan: dict,
+                         flush) -> None:
+    """Beside a traceback's warm time (the mean over TB_REPS launches on
+    one plane, whose path then sits in L2), one launch alone warm and
+    cold, the longest walk's steps (counted by the plain version) and
+    the time a step."""
+    single = time_launch_ms(fn, TB_REPS)
+    cold = time_launch_ms(fn, TB_REPS, flush)
+    longest = int(np.max(steps))
+    say(f"phase 3 {name} walk: warm {warm_ms:.3f} ms ({TB_REPS} launches on one "
+        f"plane), one launch alone {single:.3f} ms warm, {cold:.3f} ms cold "
+        f"(L2 flushed by writing {FLUSH_BYTES >> 20} MB before each); longest walk "
+        f"{longest} steps (plain version), {1e6 * warm_ms / longest:.1f} ns a "
+        f"step warm, {1e6 * cold / longest:.1f} cold; launch plan {plan}")
 
 
 def phase_environment() -> str:
@@ -364,19 +414,25 @@ def phase_kernels(dev) -> dict:
 
     bp, bc, bi, _ = got
     emit = pk.chain_traceback(bp, bc, bi)
-    emit_ref = pk.chain_traceback_plain(bp, bc, bi)
+    steps = np.zeros(B_MAIN, np.int64)
+    emit_ref = pk.chain_traceback_plain(bp, bc, bi, steps=steps)
     err = int((emit - emit_ref).abs().max())
     if not torch.equal(emit, emit_ref):
         raise AssertionError("chain_traceback disagrees with its plain version")
     aligned = int((emit[: B_MAIN - 8] >= 0).sum(dim=1).min())
-    ms = time_ms(lambda: pk.chain_traceback(bp, bc, bi), 5)
+    ms = time_ms(lambda: pk.chain_traceback(bp, bc, bi), TB_REPS)
     plain_ms = time_ms(lambda: pk.chain_traceback_plain(bp, bc, bi), 1)
     b = traceback_bound(emit, 1)
     out["chain_traceback"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               **b, "library_ms": None}
+    before = BEFORE_MS["chain_traceback"]
     say(f"phase 3 chain_traceback: emit exact (fewest bases emitted in a "
-        f"real row: {aligned}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"real row: {aligned}); kernel {ms:.3f} ms (before the redesign, other "
+        f"run: {before:.3f} ms, {ms / before:.3f}x), plain {plain_ms:.3f} ms, "
         f"bound {b['bound_ms']:.5f} ms ({b['bound_by']})")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    traceback_walk_times("chain_traceback", lambda: pk.chain_traceback(bp, bc, bi), ms,
+                         steps, pk.chain_traceback_plan(bp), flush)
     return out
 
 
@@ -523,6 +579,7 @@ def phase_graph_kernels(dev) -> dict:
     }
     params = DpParams()
     out = {}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     for mode, (cw, max_ins, sm) in modes.items():
         def kernel(k=k_ring):
             return gk.graph_dp(*ops, cw, max_ins, sm, params=params, k_ring=k)
@@ -541,8 +598,9 @@ def phase_graph_kernels(dev) -> dict:
                 raise AssertionError(f"graph_dp ({mode}) {n} disagrees with its "
                                      f"plain version ({bad} cells)")
         emit, done = gk.graph_traceback(*got[:3], flags)
+        steps = np.zeros(B_MAIN, np.int64)
         t0 = time.perf_counter()
-        emit_ref, done_ref = gk.graph_traceback_plain(*ref[:3], flags)
+        emit_ref, done_ref = gk.graph_traceback_plain(*ref[:3], flags, steps=steps)
         tb_plain_ms = (time.perf_counter() - t0) * 1e3
         if not (torch.equal(emit, emit_ref) and torch.equal(done, done_ref)):
             raise AssertionError(f"graph_traceback ({mode}) disagrees with its plain version")
@@ -550,16 +608,23 @@ def phase_graph_kernels(dev) -> dict:
             raise AssertionError(f"graph_traceback ({mode}): a walk did not finish")
         aligned = int((emit >= 0).sum(dim=1).min())
         ms = time_ms(kernel, DP_REPS)
-        tb_ms = time_ms(lambda: gk.graph_traceback(*got[:3], flags), 5)
+        def walk():
+            return gk.graph_traceback(*got[:3], flags)
+
+        tb_ms = time_ms(walk, TB_REPS)
         before = BEFORE_MS[f"graph_dp {mode}"]
         say(f"phase 3 graph_dp {mode}: B={B_MAIN} N={N_GRAPH} M={M_MAIN} "
             f"K={k_ring} bp/best_j/best_i/raw exact; kernel {ms:.3f} ms (PR 3, "
             f"other run: {before:.3f} ms, {ms / before:.3f}x), plain "
             f"{plain_ms:.3f} ms; launch plan "
             f"{gk.graph_dp_plan(M_MAIN, k_ring, max_ins is not None)}")
+        tb_before = BEFORE_MS["graph_traceback"]
         say(f"phase 3 graph_traceback {mode}: emit exact (fewest bases "
-            f"emitted in a row: {aligned}); kernel {tb_ms:.3f} ms, plain "
-            f"(host walk) {tb_plain_ms:.3f} ms")
+            f"emitted in a row: {aligned}); kernel {tb_ms:.3f} ms (before the "
+            f"redesign, other run, simple: {tb_before:.3f} ms, "
+            f"{tb_ms / tb_before:.3f}x), plain (host walk) {tb_plain_ms:.3f} ms")
+        traceback_walk_times(f"graph_traceback {mode}", walk, tb_ms, steps,
+                             gk.graph_traceback_plan(got[0]), flush)
         if mode == "simple":
             phase_global_ring(kernel, ref, k_ring)
             phase_dense_route(ops, dense, cw, got, emit, params)

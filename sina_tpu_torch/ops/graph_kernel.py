@@ -474,21 +474,24 @@ def graph_dp_plan(M: int, k_ring: int, aspace: bool) -> dict:
 
 
 def _walk(bp_b: np.ndarray, start_b: np.ndarray, j: int, i: int,
-          emit_b: np.ndarray) -> bool:
+          emit_b: np.ndarray) -> tuple[bool, int]:
     """One query's traceback (graph_pallas.py:338-414) over its (N, M)
-    plane: emit[i] = j for each consumed query base i.  Returns whether
-    the walk reached DONE within N + 2M + 8 steps."""
+    plane: emit[i] = j for each consumed query base i.  Reads clamp
+    (j, i) into the plane, as a JAX gather does.  Returns whether the
+    walk reached DONE within N + 2M + 8 steps, and the steps it took."""
     N, M = bp_b.shape
     state = _S_RESOLVE
-    for _ in range(N + 2 * M + 8):
+    steps = N + 2 * M + 8
+    for step in range(steps):
         if state == _S_DONE:
-            return True
-        cell = int(bp_b[j, i])
+            return True, step
+        jj = min(max(j, 0), N - 1)
+        cell = int(bp_b[jj, min(max(i, 0), M - 1)])
         code = cell & 3
-        at_edge = i == 0 or bool(start_b[j])
+        at_edge = i == 0 or bool(start_b[jj])
         if state in (_S_RESOLVE, _S_RESOLVE_NE):
             is_del = code == CODE_DEL and not at_edge
-            if state == _S_RESOLVE and not is_del:
+            if state == _S_RESOLVE and not is_del and 0 <= i < M:
                 emit_b[i] = j
             if is_del:
                 state = _S_CHAIN if state == _S_RESOLVE else _S_CHAIN_NE
@@ -497,7 +500,7 @@ def _walk(bp_b: np.ndarray, start_b: np.ndarray, j: int, i: int,
         elif state in (_S_CHAIN, _S_CHAIN_NE):
             ddist = (cell >> 7) & 0x1F
             pj = max(j - ddist if ddist > 0 else j, 0)
-            if (cell >> 12) & 1 or start_b[pj]:
+            if (cell >> 12) & 1 or start_b[min(pj, N - 1)]:
                 state = _S_RESOLVE if state == _S_CHAIN else _S_RESOLVE_NE
             j = pj
         elif state == _S_DECIDE:
@@ -517,16 +520,18 @@ def _walk(bp_b: np.ndarray, start_b: np.ndarray, j: int, i: int,
                 state = _S_DONE
             else:
                 i = ni
-                emit_b[i] = j
+                if i < M:
+                    emit_b[i] = j
                 state = _S_DECIDE if (cell >> 13) & 1 else _S_INS
-    return state == _S_DONE
+    return state == _S_DONE, steps
 
 
-def graph_traceback_plain(bp, best_j, best_i, flags):
+def graph_traceback_plain(bp, best_j, best_i, flags, steps=None):
     """Plain version: the per-query walk on host copies of the plane.
     bp (B, N, M) int16, best_j/best_i (B,) int32, flags (B, N) uint8 ->
     (emit (B, M) int32, done (B,) int32: 1 where the walk ended) on
-    bp's device."""
+    bp's device.  A (B,) numpy array `steps` receives each walk's step
+    count."""
     B, N, M = bp.shape
     bpn = bp.cpu().numpy()
     start = (flags.cpu().numpy() & 1) != 0
@@ -535,7 +540,9 @@ def graph_traceback_plain(bp, best_j, best_i, flags):
     emit = np.full((B, M), -1, dtype=np.int32)
     done = np.zeros(B, dtype=np.int32)
     for b in range(B):
-        done[b] = _walk(bpn[b], start[b], int(bj[b]), int(bi[b]), emit[b])
+        done[b], n = _walk(bpn[b], start[b], int(bj[b]), int(bi[b]), emit[b])
+        if steps is not None:
+            steps[b] = n
     return (torch.from_numpy(emit).to(bp.device),
             torch.from_numpy(done).to(bp.device))
 
@@ -563,6 +570,19 @@ def graph_traceback(bp, best_j, best_i, flags):
     kernels.check(err, "graph_traceback")
     kernels.launches["graph_traceback"] += 1
     return emit, done
+
+
+def graph_traceback_plan(bp: torch.Tensor) -> dict:
+    """The graph traceback kernel's launch plan for the plane bp (needs
+    the card): threads, the staged window's nodes and query positions,
+    bytes a window copy moves at once (16 where bp's nodes are 16-byte
+    aligned, else 4 or 2), dynamic and static shared memory bytes a
+    block, registers a thread."""
+    out = kernels.plan(kernels.lib().sina_graph_traceback_plan, bp.data_ptr(),
+                       bp.shape[-1], n=7)
+    keys = ("threads", "window_nodes", "window_rows", "copy_bytes", "dyn_smem",
+            "static_smem", "regs")
+    return dict(zip(keys, out))
 
 
 def check_walks(done: np.ndarray) -> None:

@@ -30,8 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("kmer_score.cu", "kmer_dense.cu", "profile_dp.cu",
            "chain_traceback.cu", "graph_dp.cu", "graph_traceback.cu")
-# included by the sources (the DPs' block scan)
-HEADERS = ("dp_scan.cuh",)
+# included by the sources (the DPs' block scan, the tracebacks' window)
+HEADERS = ("dp_scan.cuh", "traceback_window.cuh")
 # --fmad=false: the DPs must keep the reference's f32 rounding (no
 # mul+add contraction to FMA other than the ones written out) to stay
 # bit-equal to their plain versions
@@ -138,12 +138,16 @@ def lib() -> ctypes.CDLL:
         so.sina_profile_dp_plan.restype = I
         so.sina_chain_traceback.argtypes = [P, P, P, P, I, I, I, P]
         so.sina_chain_traceback.restype = I
+        so.sina_chain_traceback_plan.argtypes = [P, I, P]
+        so.sina_chain_traceback_plan.restype = I
         so.sina_graph_dp.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
         so.sina_graph_dp.restype = I
         so.sina_graph_dp_plan.argtypes = [I, I, I, P]
         so.sina_graph_dp_plan.restype = I
         so.sina_graph_traceback.argtypes = [P, P, P, P, P, P, I, I, I, P]
         so.sina_graph_traceback.restype = I
+        so.sina_graph_traceback_plan.argtypes = [P, I, P]
+        so.sina_graph_traceback_plan.restype = I
         so.sina_cuda_error_string.argtypes = [I]
         so.sina_cuda_error_string.restype = ctypes.c_char_p
         _lib = so

@@ -220,15 +220,17 @@ def profile_dp_plan(M: int) -> dict:
     return dict(zip(("lanes", "threads", "static_smem", "regs"), out))
 
 
-def _walk(bp_b: np.ndarray, j: int, i: int, emit_b: np.ndarray) -> None:
+def _walk(bp_b: np.ndarray, j: int, i: int, emit_b: np.ndarray) -> int:
     """One query's traceback state machine
     (sina_tpu/ops/profile_pallas.py:324-389), writing emit[i] = j for
-    each consumed query base i.  bp_b (C, M) uint8."""
+    each consumed query base i.  bp_b (C, M) uint8.  Returns the steps
+    it took (at most C + 2M + 8)."""
     C, M = bp_b.shape
     state = _S_RESOLVE
-    for _ in range(C + 2 * M + 8):
+    steps = C + 2 * M + 8
+    for step in range(steps):
         if state == _S_DONE:
-            break
+            return step
         cell = int(bp_b[min(max(j, 0), C - 1), min(max(i, 0), M - 1)])
         code = cell & 3
         at_edge = i == 0 or j == 0
@@ -262,19 +264,23 @@ def _walk(bp_b: np.ndarray, j: int, i: int, emit_b: np.ndarray) -> None:
                 ei = i
         if 0 <= ei < M:
             emit_b[ei] = ej
+    return steps
 
 
-def chain_traceback_plain(bp, best_c, best_i) -> torch.Tensor:
+def chain_traceback_plain(bp, best_c, best_i, steps=None) -> torch.Tensor:
     """Plain version: the per-query state-machine walk on host arrays.
     bp (C, B, M) uint8, best_c/best_i (B,) -> emit (B, M) int32 on
-    bp's device (-1 = base not consumed)."""
+    bp's device (-1 = base not consumed).  A (B,) numpy array `steps`
+    receives each walk's step count."""
     C, B, M = bp.shape
     bpn = bp.cpu().numpy()
     bc = best_c.cpu().numpy()
     bi = best_i.cpu().numpy()
     emit = np.full((B, M), -1, dtype=np.int32)
     for b in range(B):
-        _walk(bpn[:, b, :], int(bc[b]), int(bi[b]), emit[b])
+        n = _walk(bpn[:, b, :], int(bc[b]), int(bi[b]), emit[b])
+        if steps is not None:
+            steps[b] = n
     return torch.from_numpy(emit).to(bp.device)
 
 
@@ -297,3 +303,16 @@ def chain_traceback(bp, best_c, best_i) -> torch.Tensor:
     kernels.check(err, "chain_traceback")
     kernels.launches["chain_traceback"] += 1
     return emit
+
+
+def chain_traceback_plan(bp: torch.Tensor) -> dict:
+    """The chain traceback kernel's launch plan for the plane bp (needs
+    the card): threads, the staged window's columns and query
+    positions, bytes a window copy moves at once (16 where bp's columns
+    are 16-byte aligned, else 4 or 1), dynamic and static shared memory
+    bytes a block, registers a thread."""
+    out = kernels.plan(kernels.lib().sina_chain_traceback_plan, bp.data_ptr(),
+                       bp.shape[-1], n=7)
+    keys = ("threads", "window_cols", "window_rows", "copy_bytes", "dyn_smem",
+            "static_smem", "regs")
+    return dict(zip(keys, out))

@@ -464,3 +464,133 @@ def unaligned_copy(seq: Sequence) -> Sequence:
         n,
         dict(seq.attrs),
     )
+
+
+# Backpointer planes for the traceback tests: the profile DP's (C, B, M)
+# uint8 cells (bits 0-1 code, bit 2 deletion opened, bit 3 insertion
+# opened; ops/profile_kernel.py) and the graph DP's (B, N, M) int16 cells
+# (bits 0-1 code, 2-6 match distance, 7-11 deletion distance, 12
+# deletion opened, 13 insertion opened; ops/graph_kernel.py), with the
+# walks' start cells.  Each case drives the walks over one kind of edge
+# of the window the CUDA kernels stage:
+#   random          random cells, starts near the far corner
+#   deletion_run    a deletion chain of RUN columns (nodes) from the
+#                   start, entered from RESOLVE (even rows) or from
+#                   DECIDE after an insertion (odd rows)
+#   insertion_run   an insertion run of RUN query positions
+#   edge_starts     starts on the plane's edges (padding rows start at 0)
+#   outside_starts  starts outside the plane: the reads clamp
+#   step_cap        a walk that hits the step cap (the graph's done = 0)
+#   jumps           (graph) every match and deletion distance 31
+#   zero_dist       (graph) match and deletion distance 0 on match cells
+# Every graph plane but step_cap's ends its walks without the cap: node 0
+# is a start node and deletion distances are >= 1 where a chain can read
+# them, so a walk without a step cap (the JAX package's) ends too.
+TRACEBACK_CASES = ("random", "deletion_run", "insertion_run", "edge_starts",
+                   "outside_starts", "step_cap")
+GRAPH_TRACEBACK_CASES = TRACEBACK_CASES + ("jumps", "zero_dist")
+# longer than any window the kernels stage (256 columns or nodes, 192
+# query positions)
+RUN = 320
+_EDGE, _MATCH, _DEL, _INS = 0, 1, 2, 3
+
+
+def _cells(rng, B: int, C: int, M: int) -> dict:
+    """Random cell fields (B, C, M): mostly matches, a rare edge code
+    (so walks run far), open flags at 0.35, match distances mostly 1
+    and deletion distances mostly 1-3, one in ten up to 31."""
+    shape = (B, C, M)
+    u = rng.random(shape)
+    code = np.where(u < 0.0005, _EDGE, np.where(u < 0.62, _MATCH,
+                    np.where(u < 0.81, _DEL, _INS))).astype(np.int32)
+    mdist = np.where(rng.random(shape) < 0.9, 1, rng.integers(0, 32, shape))
+    ddist = np.where(rng.random(shape) < 0.9, rng.integers(1, 4, shape),
+                     rng.integers(1, 32, shape))
+    return {"code": code, "dopen": rng.random(shape) < 0.35,
+            "iopen": rng.random(shape) < 0.35,
+            "mdist": mdist.astype(np.int32), "ddist": ddist.astype(np.int32)}
+
+
+def _traceback_case(case: str, seed: int, B: int, C: int, M: int, graph: bool):
+    """Cell fields (B, C, M), start flags (B, C) and starts (B,) x 2 of
+    one case; C counts columns or nodes."""
+    if case not in (GRAPH_TRACEBACK_CASES if graph else TRACEBACK_CASES):
+        raise ValueError(f"unknown traceback case {case!r}")
+    rng = np.random.default_rng(seed)
+    f = _cells(rng, B, C, M)
+    start = rng.random((B, C)) < 0.002
+    start[:, 0] = True
+    sj = C - 1 - rng.integers(0, C // 10 + 1, B)
+    si = M - 1 - rng.integers(0, M // 10 + 1, B)
+    if case == "deletion_run":
+        n = min(RUN, C - 2)
+        for b in range(B):
+            j0, i0 = int(sj[b]), max(int(si[b]), 2)
+            si[b] = i0
+            if b % 2:       # entered from DECIDE: an insertion, then the run
+                f["code"][b, j0, i0], f["iopen"][b, j0, i0] = _INS, True
+                i0 -= 1
+            f["code"][b, j0, i0] = _DEL
+            lo = max(j0 - n, 0)
+            f["dopen"][b, lo + 1:j0 + 1, i0] = False
+            f["dopen"][b, lo, i0] = True
+            f["ddist"][b, lo:j0 + 1, i0] = 1
+            start[b, lo:j0 + 1] = lo == 0 and np.arange(lo, j0 + 1) == 0
+    elif case == "insertion_run":
+        n = min(RUN, M - 2)
+        for b in range(B):
+            j0, i0 = int(sj[b]), M - 1
+            si[b] = i0
+            f["code"][b, j0, i0] = _INS
+            f["iopen"][b, j0, i0 - n + 1:i0 + 1] = False
+            f["iopen"][b, j0, i0 - n] = True
+            start[b, j0] = j0 == 0
+    elif case == "edge_starts":
+        edges = [(C - 1, M - 1), (0, M - 1), (C - 1, 0), (0, 0),
+                 (C - 1, None), (None, M - 1), (0, None), (None, 0)]
+        for b in range(B):
+            ej, ei = edges[b % len(edges)]
+            sj[b] = rng.integers(0, C) if ej is None else ej
+            si[b] = rng.integers(0, M) if ei is None else ei
+    elif case == "outside_starts":
+        js = (-3, C + 5, -1, C, C - 1, 0)
+        is_ = (M + 7, -2, M, -1, M - 1, M + 1)
+        for b in range(B):
+            sj[b], si[b] = js[b % len(js)], is_[(b // 2) % len(is_)]
+    elif case == "step_cap":
+        sj[:], si[:] = C - 1, M - 1
+        if graph:       # a deletion chain that never moves nor stops
+            f["code"][:], f["ddist"][:] = _DEL, 0
+            f["dopen"][:] = start[:] = False
+        else:           # two steps a row, then two a column
+            f["code"][:], f["iopen"][:] = _INS, True
+            f["code"][:, :, 1], f["dopen"][:, :, 1] = _DEL, True
+    elif case == "jumps":
+        f["mdist"][:], f["ddist"][:] = 31, 31
+    elif case == "zero_dist":
+        m = f["code"] == _MATCH
+        f["mdist"][m], f["ddist"][m], f["dopen"][m] = 0, 0, True
+    return f, start, sj.astype(np.int32), si.astype(np.int32)
+
+
+def chain_traceback_case(case: str, seed: int, B: int, C: int, M: int):
+    """A profile-DP backpointer plane and its walks' starts for one of
+    TRACEBACK_CASES: bp (C, B, M) uint8, best_c and best_i (B,) int32
+    (numpy).  deletion_run needs C > 2, insertion_run M > 2, step_cap
+    C >= 12 and M >= 3."""
+    f, _, sj, si = _traceback_case(case, seed, B, C, M, graph=False)
+    cell = f["code"] | (f["dopen"] << 2) | (f["iopen"] << 3)
+    return np.ascontiguousarray(cell.astype(np.uint8).transpose(1, 0, 2)), sj, si
+
+
+def graph_traceback_case(case: str, seed: int, B: int, N: int, M: int):
+    """A graph-DP backpointer plane and its walks' starts for one of
+    GRAPH_TRACEBACK_CASES: bp (B, N, M) int16, best_j and best_i (B,)
+    int32, flags (B, N) uint8 (bit 0 start node; bits 1-2 random, as
+    the end flags the walk ignores) (numpy)."""
+    f, start, sj, si = _traceback_case(case, seed, B, N, M, graph=True)
+    cell = (f["code"] | (f["mdist"] << 2) | (f["ddist"] << 7)
+            | (f["dopen"] << 12) | (f["iopen"] << 13))
+    noise = np.random.default_rng(seed + 1).integers(0, 4, (B, N)) << 1
+    flags = (start | noise).astype(np.uint8)
+    return cell.astype(np.int16), sj, si, flags

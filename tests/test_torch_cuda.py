@@ -383,3 +383,85 @@ def test_graph_dense_route_matches_cpu(cuda, case):
     want = run_dense(c, case, "cpu")
     _equal(got, want)
     assert got[5].tolist() == [1, 1, 1]
+
+
+# (B, C, M): one query at sizes below one window, not multiples of it
+# (M % 4 != 0: byte copies); M % 16 != 0 (4-byte copies); the window
+# crossed in both directions, with 4-byte and with 16-byte copies
+CHAIN_SHAPES = [(1, 13, 7), (3, 100, 36), (4, 700, 600), (2, 700, 640)]
+# (B, N, M): odd M (one-cell copies), even M (4-byte), M % 8 == 0 (16-byte)
+GRAPH_SHAPES = [(1, 13, 7), (3, 100, 37), (4, 700, 500), (2, 600, 512)]
+
+
+def _copy_bytes(M, elem):
+    return 16 if M * elem % 16 == 0 else 4 if M * elem % 4 == 0 else elem
+
+
+def _on(cuda, *arrays, offset=0):
+    """numpy arrays as CUDA tensors; `offset` bytes into a buffer for
+    the first (a plane whose lines are less aligned than its shape
+    allows)."""
+    out = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays]
+    if offset:
+        p = out[0]
+        raw = torch.empty(p.numel() * p.element_size() + offset, dtype=torch.uint8,
+                          device=cuda)
+        view = raw[offset:].view(p.dtype).view(p.shape)
+        view.copy_(p)
+        out[0] = view
+    return out
+
+
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+@pytest.mark.parametrize("case", ["random", "deletion_run", "insertion_run", "edge_starts",
+                                  "outside_starts", "step_cap"])
+def test_chain_traceback_on_adversarial_planes(cuda, case, shape):
+    """The staged-window kernel equals the plain walk on every case of
+    sina_tpu_torch.testing.chain_traceback_case, at odd shapes and across
+    windows."""
+    from sina_tpu_torch import testing
+
+    bp, bc, bi = testing.chain_traceback_case(case, 17, *shape)
+    t = _on(cuda, bp, bc, bi)
+    before = kernels.launches["chain_traceback"]
+    emit = pk.chain_traceback(*t)
+    assert kernels.launches["chain_traceback"] == before + 1
+    _equal([emit], [pk.chain_traceback_plain(*t)])
+    assert pk.chain_traceback_plan(t[0])["copy_bytes"] == _copy_bytes(shape[2], 1)
+
+
+@pytest.mark.parametrize("shape", GRAPH_SHAPES)
+@pytest.mark.parametrize("case", ["random", "deletion_run", "insertion_run", "edge_starts",
+                                  "outside_starts", "step_cap", "jumps", "zero_dist"])
+def test_graph_traceback_on_adversarial_planes(cuda, case, shape):
+    """The staged-window kernel equals the plain walk (emit and done) on
+    every case of sina_tpu_torch.testing.graph_traceback_case, at odd
+    shapes and across windows; step_cap's walks do not finish."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    t = _on(cuda, *testing.graph_traceback_case(case, 19, *shape))
+    before = kernels.launches["graph_traceback"]
+    emit, done = gk.graph_traceback(*t)
+    assert kernels.launches["graph_traceback"] == before + 1
+    _equal([emit, done], gk.graph_traceback_plain(*t))
+    assert done.cpu().tolist() == [0 if case == "step_cap" else 1] * shape[0]
+    assert gk.graph_traceback_plan(t[0])["copy_bytes"] == _copy_bytes(shape[2], 2)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_traceback_plane_at_a_narrower_alignment(cuda, graph):
+    """A plane whose shape allows 16-byte copies but whose address does
+    not (4 or 2 bytes into a buffer) takes the narrower copies, with the
+    same result."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    if graph:
+        t = _on(cuda, *testing.graph_traceback_case("random", 23, 2, 600, 512), offset=2)
+        assert gk.graph_traceback_plan(t[0])["copy_bytes"] == 2
+        _equal(gk.graph_traceback(*t), gk.graph_traceback_plain(*t))
+    else:
+        t = _on(cuda, *testing.chain_traceback_case("random", 23, 2, 700, 640), offset=4)
+        assert pk.chain_traceback_plan(t[0])["copy_bytes"] == 4
+        _equal([pk.chain_traceback(*t)], [pk.chain_traceback_plain(*t)])
