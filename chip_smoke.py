@@ -11,7 +11,11 @@ Phases, each printing a line:
      source, all started together);
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (exact), with both times and the card's bound;
-     the two DPs and the two tracebacks with their launch plans
+     the packed k-mer scorer also with its group maxima (exact), and
+     score_topk at k = 256 and 1,000 split into the kernel and the torch
+     top-k stages, beside the same call with stage 1 by amax, in turns;
+     the packed scorer, the two DPs and the two tracebacks with their
+     launch plans
      (threads, registers, shared memory a block) and their times from
      another run before the redesign beside the new ones; each
      traceback also one launch alone, warm and cold (L2 flushed before
@@ -34,7 +38,9 @@ Phases, each printing a line:
   5. the profile-engine main path at scale: 100,000 references at
      width 50,000, full-length queries in batches of 128 through
      famfinder, aligner and the FASTA writer, with its kernels' launch
-     counts;
+     counts; then the packed scorer on the ids of one steady batch
+     (exact), with their distinct rows, its bound and its time back to
+     back and one launch alone with L2 flushed;
   6. the first 16 of those queries again with device="cpu" (the
      plain versions): the aligned records must be identical;
   7. the graph engine at the same scale: 384 full-length queries in
@@ -66,6 +72,7 @@ that line.  Imports nothing of JAX or of the JAX package sina_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -143,7 +150,7 @@ GRAPH_INSTS_PER_END_CELL = (4, 1)
 # 6 names the runs; same shapes, an NVIDIA H100 80GB HBM3 at 700 W; the
 # graph traceback's in the simple mode); printed beside this run's, so
 # the ratio holds both runs' spread
-BEFORE_MS = {"profile_dp": 2.046, "graph_dp simple": 8.926,
+BEFORE_MS = {"kmer_score": 0.391, "profile_dp": 2.046, "graph_dp simple": 8.926,
              "graph_dp weighted": 8.883, "graph_dp aspace": 11.120,
              "graph_dp matrix": 10.980, "chain_traceback": 0.814,
              "graph_traceback": 0.640}
@@ -357,18 +364,23 @@ def phase_kernels(dev) -> dict:
     err = int((got - ref).abs().max())
     if err != 0 or not torch.equal(got, ref):
         raise AssertionError(f"kmer_score disagrees with its plain version (max |d|={err})")
+    scores, gmax = kk.kmer_scores(P, kmers, gmax=True)
+    if not (torch.equal(scores, ref) and torch.equal(gmax, kk.group_max_plain(ref))):
+        raise AssertionError("kmer_score with the group maxima disagrees with its plain "
+                             "versions")
+    del scores, gmax
     ms = time_ms(lambda: kk.kmer_scores(P, kmers), 10)
     plain_ms = time_ms(lambda: kk.kmer_scores_plain(P, kmers), 2)
-    # the distinct rows gathered (the sink row included), the k-mer ids
-    # and the scores; one add per query, k-mer and reference
-    rows = int(torch.unique(kmers).numel())
-    b = bound(rows * KMER_SB + 4 * kmers.numel() + 4 * B_MAIN * 8 * KMER_SB,
-              B_MAIN * KMER_L * 8 * KMER_SB)
+    b = kmer_bound(kmers, KMER_SB)
     out["kmer_score"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          **b, "library_ms": None}
-    say(f"phase 3 kmer_score: B={B_MAIN} L={KMER_L} Sb={KMER_SB} exact; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {rows} distinct rows)")
+    before = BEFORE_MS["kmer_score"]
+    say(f"phase 3 kmer_score: B={B_MAIN} L={KMER_L} ({KMER_REAL} real) Sb={KMER_SB} "
+        f"scores and group maxima exact; kernel {ms:.3f} ms (before the redesign, other "
+        f"run: {before:.3f} ms, {ms / before:.3f}x), plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {kmer_rows(kmers)}); launch plan "
+        f"{kk.kmer_score_plan(P)}")
+    score_topk_times(P, kmers)
     del P, got, ref
     torch.cuda.empty_cache()
 
@@ -434,6 +446,66 @@ def phase_kernels(dev) -> dict:
     traceback_walk_times("chain_traceback", lambda: pk.chain_traceback(bp, bc, bi), ms,
                          steps, pk.chain_traceback_plan(bp), flush)
     return out
+
+
+def kmer_bound(kmers, Sb: int) -> dict:
+    """The bitpacked scorer's bound: the distinct rows of the batch (the
+    sink row included) read once, the k-mer ids, the scores written
+    once; one add per query, k-mer and reference."""
+    import torch
+
+    B, L = kmers.shape
+    rows = int(torch.unique(kmers).numel())
+    return bound(rows * Sb + 4 * kmers.numel() + 4 * B * 8 * Sb, B * L * 8 * Sb)
+
+
+def kmer_rows(kmers) -> str:
+    """The rows a batch of k-mer ids holds: distinct over the batch (what
+    device memory must give at least once) and distinct in each query
+    summed (what the kernel's runs gather), against the ids."""
+    import torch
+
+    batch = int(torch.unique(kmers).numel())
+    runs = sum(int(torch.unique(row).numel()) for row in kmers)
+    return (f"{batch} distinct rows in the batch, {runs} distinct in each query "
+            f"summed, {kmers.numel()} ids")
+
+
+def score_topk_times(P, kmers) -> None:
+    """score_topk's device time a call on phase 3's matrix at k = 256 and
+    1,000 (torch.profiler over 10 calls), split into the kernel (its
+    pre-pass included) and the torch top-k stages: stage 1 from the
+    group maxima the kernel writes (the port's path), and in turns the
+    same call whose stage 1 takes amax over the scores (gmax, amax, amax,
+    gmax; means over each route's two turns)."""
+    import torch
+
+    from sina_tpu_torch.ops import kmer_kernel as kk
+
+    def with_amax(k):
+        return torch.cat(kk.grouped_top_k(kk.kmer_scores(P, kmers), k), dim=1)
+
+    for k in (256, 1000):
+        if not torch.equal(kk.score_topk(P, kmers, k), with_amax(k)):
+            raise AssertionError(f"score_topk (k={k}) differs with the kernel's group maxima")
+        routes = {"gmax": lambda: kk.score_topk(P, kmers, k), "amax": lambda: with_amax(k)}
+        times = {name: [] for name in routes}
+        for name in ("gmax", "amax", "amax", "gmax"):
+            times[name].append(device_split(routes[name], 10))
+        mean = {name: np.mean(t, axis=0) for name, t in times.items()}
+        say(f"phase 3 score_topk k={k} (device ms a call): group maxima from the kernel: "
+            f"kernel {mean['gmax'][0]:.3f} + torch top-k stages {mean['gmax'][1]:.3f} = "
+            f"{mean['gmax'].sum():.3f}; stage 1 by amax: kernel {mean['amax'][0]:.3f} + "
+            f"stages {mean['amax'][1]:.3f} = {mean['amax'].sum():.3f} (ids equal)")
+
+
+def device_split(fn, reps: int) -> tuple[float, float]:
+    """Device ms a call of fn(), by torch.profiler over `reps` calls: the
+    bitpacked scorer's kernels (kmer_runs_kernel, kmer_score_kernel), and
+    everything else."""
+    busy, _, per = device_busy(lambda: [fn() for _ in range(reps)])
+    kernel = sum(ms for ms, name in per if "kmer_" in name)
+    return kernel / reps, (busy - kernel) / reps
 
 
 def traceback_bound(emit, bp_bytes: int) -> dict:
@@ -898,8 +970,9 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
     t_warm = time.perf_counter() - t0
     reset_all()
     t0 = time.perf_counter()
-    aligned += _run_batches(finder, batches[1:], acfg, dev)
-    torch.cuda.synchronize()
+    with first_scored_ids() as real_kmers:
+        aligned += _run_batches(finder, batches[1:], acfg, dev)
+        torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
     launches = dict(kernels.launches)
     n_steady = N_QUERIES - B_MAIN
@@ -930,7 +1003,68 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
     else:
         say("phase 5 device busy: not measured (the profiler recorded "
             "no device activity)")
+    real_batch_scorer(P, real_kmers[0])
     return launches, aligned[:16], pristine, finder, db
+
+
+@contextlib.contextmanager
+def first_scored_ids():
+    """While open, keeps (in the list it yields) the k-mer ids that
+    famfinder passes to its first call of score_topk: those of the
+    first batch the main path scores, as the main path built them."""
+    from sina_tpu_torch import famfinder
+
+    seen = []
+    score_topk = famfinder._score_topk_device
+
+    def recording(P, kmers, k):
+        if not seen:
+            seen.append(kmers)
+        return score_topk(P, kmers, k)
+
+    famfinder._score_topk_device = recording
+    try:
+        yield seen
+    finally:
+        famfinder._score_topk_device = score_topk
+    if not seen:
+        raise AssertionError("the main path never called score_topk")
+
+
+def real_batch_scorer(P, kmers) -> None:
+    """The scorer on the ids of one steady batch of the main path: exact
+    against its plain version, its rows, its bound and its time: 10
+    launches back to back (CUDA events; the wrapper's host time shows
+    where it is the longer), their kernels' own device time a launch
+    (torch.profiler; a launch finds part of the last one's rows in L2),
+    and one launch alone with L2 flushed before it, as a new batch of
+    the main path finds it (CUDA events, 10 launches), which the
+    bound's rate takes."""
+    import torch
+
+    from sina_tpu_torch.ops import kmer_kernel as kk
+
+    got = kk.kmer_scores(P, kmers)
+    if not torch.equal(got, kk.kmer_scores_plain(P, kmers)):
+        raise AssertionError("kmer_score disagrees with its plain version on a real batch")
+    del got
+    def fn():
+        return kk.kmer_scores(P, kmers)
+
+    ms = time_ms(fn, 10)
+    device_ms, _ = device_split(fn, 10)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=P.device)
+    cold = time_launch_ms(fn, 10, flush)
+    del flush
+    b = kmer_bound(kmers, P.shape[1])
+    sink = P.shape[0] - 1
+    real = float((kmers != sink).sum(dim=1).float().mean())
+    say(f"phase 5 kmer_score on one steady batch's ids: B={kmers.shape[0]} "
+        f"L={kmers.shape[1]} ({real:.1f} real ids a query on average), Sb={P.shape[1]}; "
+        f"{kmer_rows(kmers)}; back to back {ms:.3f} ms a launch (device time "
+        f"{device_ms:.3f} ms), one launch alone cold {cold:.3f} ms; bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), {b['bound_ms'] / cold:.3f} of the "
+        f"bound's rate cold")
 
 
 def phase_cpu_parity(finder, gpu_records, queries, tmp: Path, acfg,

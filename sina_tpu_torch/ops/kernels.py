@@ -126,8 +126,10 @@ def lib() -> ctypes.CDLL:
         so = ctypes.CDLL(str(build()))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
-        so.sina_kmer_score.argtypes = [P, P, P, LL, LL, I, I, P]
+        so.sina_kmer_score.argtypes = [P, P, P, P, P, LL, LL, I, I, P]
         so.sina_kmer_score.restype = I
+        so.sina_kmer_score_plan.argtypes = [LL, P, P]
+        so.sina_kmer_score_plan.restype = I
         so.sina_kmer_score_dense.argtypes = [P, P, P, LL, LL, I, I, P]
         so.sina_kmer_score_dense.restype = I
         so.sina_profile_dp.argtypes = [

@@ -60,6 +60,97 @@ def test_kmer_kernel_takes_tiled_view(cuda):
     _equal([got], [kk.kmer_scores_plain(P3.reshape(40, -1), kmers)])
 
 
+def _kmer_ids(pattern: str, B: int, L: int, R: int, seed: int) -> torch.Tensor:
+    """(B, L) int32 ids into an R-row matrix (the last row the sink):
+    random, in ascending or descending order, one id repeated 600 or
+    2,100 times among random ones, every id the sink row, or a third of
+    the ids below 0 and a third past the end."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, R, (B, L))
+    if pattern == "ascending":
+        ids.sort(axis=1)
+    elif pattern == "descending":
+        ids = -np.sort(-ids, axis=1)
+    elif pattern.startswith("repeat"):
+        n = int(pattern[len("repeat"):])
+        ids[:, 50:50 + n] = 7
+    elif pattern == "sink":
+        ids[:] = R - 1
+    elif pattern == "outside":
+        ids[:, ::3] = rng.integers(-5, 0, ids[:, ::3].shape)
+        ids[:, 1::3] = rng.integers(R, R + 10, ids[:, 1::3].shape)
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+# (B, L, Sb, R, pattern): B = 1; L = 1, 511, 513, 4,096 and 9,000 (three
+# sort chunks); Sb = 4, 12, 16, 1,028 (4-byte loads) and 12,544 (16-byte);
+# counts that flush the 8-bit lanes (L = 4,096 over 300 rows), more than
+# 2,040 single runs (20,000 rows), a count past the lanes' reach (2,100 and
+# 4,096) that goes straight to the wide counters
+KMER_RUN_CASES = [
+    (1, 1, 12_544, 300, "random"),
+    (1, 511, 12_544, 300, "random"),
+    (3, 513, 12_544, 300, "random"),
+    (2, 4096, 1028, 300, "random"),
+    (2, 4096, 12, 20_000, "random"),
+    (2, 9000, 16, 20_000, "random"),
+    (3, 700, 12_544, 300, "repeat600"),
+    (2, 4096, 12_544, 300, "repeat2100"),
+    (4, 512, 4, 300, "ascending"),
+    (4, 512, 12, 300, "descending"),
+    (2, 4096, 12_544, 300, "sink"),
+    (3, 600, 1028, 300, "outside"),
+    (2, 600, 12_544, 300, "outside"),
+]
+
+
+@pytest.mark.parametrize("B,L,Sb,R,pattern", KMER_RUN_CASES)
+def test_kmer_kernel_runs_match_plain(cuda, B, L, Sb, R, pattern):
+    """The run-list kernel's scores and group maxima equal the plain
+    versions, with and without the group maxima; one launch a call;
+    16-byte loads where Sb allows them."""
+    g = torch.Generator().manual_seed(Sb + L + R)
+    P = torch.randint(0, 256, (R, Sb), dtype=torch.uint8, generator=g)
+    P[-1] = 0
+    kmers = _kmer_ids(pattern, B, L, R, seed=B * L + Sb)
+    want = kk.kmer_scores_plain(P, kmers)
+    Pc, kc = P.to(cuda), kmers.to(cuda)
+    before = kernels.launches["kmer_score"]
+    scores, gmax = kk.kmer_scores(Pc, kc, gmax=True)
+    assert kernels.launches["kmer_score"] == before + 1
+    _equal([scores, gmax], [want, kk.group_max_plain(want)])
+    _equal([kk.kmer_scores(Pc, kc)], [want])
+    assert kernels.launches["kmer_score"] == before + 2
+    assert kk.kmer_score_plan(Pc)["load_bytes"] == (16 if Sb % 16 == 0 else 4)
+
+
+@pytest.mark.parametrize("offset,load_bytes", [(4, 4), (8, 4)])
+def test_kmer_kernel_at_a_narrower_alignment(cuda, offset, load_bytes):
+    """A matrix whose rows allow 16-byte loads but whose base is only 4-
+    or 8-byte aligned takes 4-byte loads, with the same result."""
+    g = torch.Generator().manual_seed(offset)
+    P = torch.randint(0, 256, (300, 12_544), dtype=torch.uint8, generator=g)
+    P[-1] = 0
+    kmers = _kmer_ids("random", 3, 512, 300, seed=offset)
+    raw = torch.empty(P.numel() + offset, dtype=torch.uint8, device=cuda)
+    Pc = raw[offset:].view(P.shape)
+    Pc.copy_(P)
+    assert Pc.data_ptr() % 16 == offset % 16
+    assert kk.kmer_score_plan(Pc)["load_bytes"] == load_bytes
+    want = kk.kmer_scores_plain(P, kmers)
+    _equal(kk.kmer_scores(Pc, kmers.to(cuda), gmax=True), [want, kk.group_max_plain(want)])
+
+
+def test_kmer_kernel_tiled_view_with_gmax(cuda):
+    g = torch.Generator().manual_seed(2)
+    P3 = torch.randint(0, 256, (300, 32, 392), dtype=torch.uint8, generator=g)
+    P3[-1] = 0
+    kmers = _kmer_ids("random", 5, 700, 300, seed=2)
+    want = kk.kmer_scores_plain(P3.reshape(300, -1), kmers)
+    _equal(kk.kmer_scores(P3.to(cuda), kmers.to(cuda), gmax=True),
+           [want, kk.group_max_plain(want)])
+
+
 def test_kmer_kernel_rejects_bad_operands(cuda):
     P = torch.zeros((10, 6), dtype=torch.uint8, device=cuda)
     k = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
@@ -157,7 +248,10 @@ def test_grouped_topk_on_cuda_equals_cpu(cuda):
     kmers[2] = rng.integers(0, L + 1, L)
     kmers = torch.from_numpy(kmers)
     for k in (1000, 256, 8):
+        before = kernels.launches["kmer_score"]
         got = kk.score_topk(P.to(cuda), kmers.to(cuda), k)
+        # one launch: the scores and the group maxima of the first stage
+        assert kernels.launches["kmer_score"] == before + 1
         _equal([got], [kk.score_topk(P, kmers, k)])
 
 

@@ -209,6 +209,88 @@ def test_topk_equals_jax_with_heavy_ties(n_refs, k):
     assert np.array_equal(flat.numpy(), gi) != grouped_tied
 
 
+def _gmax_case(case: str):
+    """A random packed matrix of 300 rows (the last the all-zero sink
+    row) and 4 queries of 512 ids shaped as `case`; returns (P, kmers,
+    the ids clamped into the matrix)."""
+    rng = np.random.default_rng(len(case))
+    R, L = 300, 512
+    P = rng.integers(0, 256, (R, 24), dtype=np.uint8)
+    P[-1] = 0
+    kmers = rng.integers(0, R - 1, (4, L), dtype=np.int32)
+    if case == "repeats":
+        kmers[:, 100:420] = 17            # one id 320 times in a row
+        kmers[1, :] = 5                   # a query that holds one id only
+        kmers[2, ::2] = 9                 # an id every other position
+    elif case == "sorted_and_reversed":
+        kmers[0].sort()
+        kmers[1] = np.sort(kmers[1])[::-1]
+        kmers[2, 360:] = R - 1            # real ids, then the sink row
+    elif case == "all_sink":
+        kmers[:] = R - 1
+    elif case == "out_of_range":
+        kmers[:, ::3] = rng.integers(-5, 0, kmers[:, ::3].shape)
+        kmers[:, 1::3] = rng.integers(R, R + 40, kmers[:, 1::3].shape)
+    return P, kmers, np.clip(kmers, 0, R - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "repeats", "sorted_and_reversed", "all_sink",
+                                  "out_of_range"])
+def test_group_max_matches_pallas_and_xla(case):
+    """The scorer's second output (the maxima of each byte column's 8
+    scores, grouped_top_k's first stage) and its scores, against the
+    Pallas kernel in interpret mode and the XLA path, reshaped to
+    (B, Sb, 8) and maxed over the last axis.  Ids outside the matrix
+    clamp into it in the port (-5 is row 0, R + 3 the sink row), so the
+    JAX side gets the clamped ids."""
+    P, kmers, clamped = _gmax_case(case)
+    B, Sb = kmers.shape[0], P.shape[1]
+    pal = np.asarray(kmer_scores_packed_pallas(jnp.asarray(P), clamped, interpret=True))
+    xla = np.asarray(kmer_scores_packed_xla(jnp.asarray(P), jnp.asarray(clamped)))
+    scores, gmax = kk.kmer_scores(torch.from_numpy(P), torch.from_numpy(kmers), gmax=True)
+    np.testing.assert_array_equal(scores.numpy(), pal)
+    np.testing.assert_array_equal(scores.numpy(), xla)
+    assert gmax.dtype == torch.int32 and gmax.shape == (B, Sb)
+    np.testing.assert_array_equal(gmax.numpy(), pal.reshape(B, Sb, 8).max(axis=2))
+    np.testing.assert_array_equal(gmax.numpy(), xla.reshape(B, Sb, 8).max(axis=2))
+    np.testing.assert_array_equal(kk.group_max_plain(scores).numpy(), gmax.numpy())
+    if case == "all_sink":
+        assert not gmax.numpy().any()
+    if case == "repeats":
+        # the query of one id 512 times scores 512 on every bit of its row
+        assert gmax.numpy()[1].max() == 512
+
+
+def test_gmax_needs_the_packed_matrix():
+    P8 = torch.zeros((5, 128), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        kk.kmer_scores(P8, torch.zeros((1, 3), dtype=torch.int32), gmax=True)
+
+
+@pytest.mark.parametrize("n_refs,k", [(32768, 256), (32768, 1000), (100352, 256),
+                                      (100352, 1000)])
+def test_grouped_topk_from_gmax_equals_jax(n_refs, k):
+    """grouped_top_k with its first stage taken from the scorer's group
+    maxima gives the values and ids of grouped_top_k without them and of
+    the JAX package's grouped_top_k on the JAX scores, with the k-th
+    value tied among thousands (the fixture of
+    test_topk_equals_jax_with_heavy_ties)."""
+    from sina_tpu.ops.kmer_kernel import grouped_top_k as jax_grouped_top_k
+
+    rng = np.random.default_rng(n_refs + k)
+    P, kmers = _tied_index(rng, n_refs)
+    scores, gmax = kk.kmer_scores(torch.from_numpy(P), torch.from_numpy(kmers), gmax=True)
+    gv, gi = kk.grouped_top_k(scores, k, gmax)
+    av, ai = kk.grouped_top_k(scores, k)
+    jax_scores = kmer_scores_packed_xla(jnp.asarray(P), jnp.asarray(kmers))
+    jv, ji = (np.asarray(a) for a in jax_grouped_top_k(jax_scores, k))
+    for got, want in ((gv, av), (gi, ai), (gv, jv), (gi, ji)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    # the k-th value is tied: more references hold it than the top-k keeps
+    kth = gv[:, -1:]
+    assert ((scores == kth).sum(dim=1) > (gv == kth).sum(dim=1)).all()
+
+
 @pytest.fixture(scope="module")
 def synthetic_index():
     """A JAX-package KmerIndex over 100,000 synthetic references of
