@@ -14,6 +14,11 @@ Phases, each printing a line:
      the packed k-mer scorer also with its group maxima (exact), and
      score_topk at k = 256 and 1,000 split into the kernel and the torch
      top-k stages, beside the same call with stage 1 by amax, in turns;
+     the profile DP's bounded-insertion (forbid) mode on the same
+     shapes with a budget plane of 0, 1, small values, values above M
+     and 10**6, eight rows of it real families and queries of phase
+     5's reference (made before this phase), exact with the chain
+     traceback's emit on its plane, timed beside the shift mode;
      the packed scorer, the two DPs and the two tracebacks with their
      launch plans
      (threads, registers, shared memory a block) and their times from
@@ -33,8 +38,11 @@ Phases, each printing a line:
      dense route (no measured bucket takes it) on the same bucket;
   4. the CLI (sina_tpu_torch.cli.main --device cuda) on a small
      generated reference: the profile engine, --fs-graph, --fs-graph
-     --insertion forbid, --use-subst-matrix, --turn, --turn all and
-     -S --lca-fields tax_slv;
+     --insertion forbid, --insertion forbid, --fs-no-graph --insertion
+     forbid, --use-subst-matrix, --turn, --turn all, -S --lca-fields
+     tax_slv, --debug-lattice 0:20 (one lattice_<name>.dot a query) and
+     --jax-profile-dir (a torch.profiler trace written, the FASTA equal
+     to the run without it);
   5. the profile-engine main path at scale: 100,000 references at
      width 50,000, full-length queries in batches of 128 through
      famfinder, aligner and the FASTA writer, with its kernels' launch
@@ -62,7 +70,12 @@ Phases, each printing a line:
      come from the grouped top-k (100,352 padded references), whose
      ids must equal the cpu's;
  11. the first 16 of those again with device="cpu": identical records,
-     turn_slv, nearest_slv and lca_tax_slv included.
+     turn_slv, nearest_slv and lca_tax_slv included;
+ 12. the profile engine with --insertion forbid at the same scale: 384
+     full-length queries in three batches of 128 (the first warms up)
+     with AlignerConfig(insertion="forbid"), with its kernels' launch
+     counts and the device's busy share;
+ 13. the first 16 of those again with device="cpu": identical records.
 
 The second-to-last line is the kernels' JSON record, the line before
 it the card's `nvidia-smi` name and power limit, and the last line
@@ -97,6 +110,8 @@ FAMILY, N_GRAPH, N_GRAPH_QUERIES = 40, 4096, 384
 # (4.3 GB; the 100k-reference one would be 26.3 GB, not worth its
 # host build and copy here)
 DENSE_S = 16_384
+# the forbid profile path: 384 queries, one warm-up and two steady batches
+N_FORBID_QUERIES = 384
 # turn + search: 64 queries, each in the four orientations
 N_TURN = 64
 TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
@@ -125,6 +140,17 @@ INT32_PER_S = ISSUE_PER_S / 2
 # prefix-min 1, Irow 2, ins_opened 3, take_i, Vrow and code 3 (1
 # integer), the bp byte 4 (integer): 27, 7 of them integer.
 PROFILE_INSTS_PER_CELL = (27, 7)
+# the bounded-insertion (forbid) mode, from the same plain version: the
+# insertion track's prefix-min 1 and Irow 2 become Irow 1 (the prefix
+# plus the ramp), ins_opened takes 3 more (the 1e-4 add, its compare,
+# the or: 1 integer), so 28 a cell, 8 integer; in a column whose budget
+# R >= 1 the trailing-window minimum, 3 a cell (van Herk / Gil-Werman:
+# a forward and a backward min in segments of R and their combine); and
+# once a column the budget test (1, integer) that sends the whole row to
+# BIG below 1
+FORBID_INSTS_PER_CELL = (28, 8)
+FORBID_INSTS_PER_WINDOW_CELL = 3
+FORBID_INSTS_PER_COLUMN = (1, 1)
 # per real column: the profile's unpack 10, occupancy 3, its deletion
 # and mismatch products 3, and for each of the 16 query masks the
 # substitution cost (dot 7, sub 4): 192; end candidate 1 (compare,
@@ -168,6 +194,8 @@ KERNELS = {
                          "sina_tpu/ops/kmer_kernel.py:56"),
     "profile_dp": ("sina_tpu_torch/csrc/profile_dp.cu",
                    "sina_tpu/ops/profile_pallas.py:42"),
+    "profile_dp_forbid": ("sina_tpu_torch/csrc/profile_dp.cu",
+                          "sina_tpu/ops/profile.py:399"),
     "chain_traceback": ("sina_tpu_torch/csrc/chain_traceback.cu",
                         "sina_tpu/ops/profile_pallas.py:309"),
     "graph_dp": ("sina_tpu_torch/csrc/graph_dp.cu",
@@ -176,6 +204,7 @@ KERNELS = {
                         "sina_tpu/ops/graph_pallas.py:333"),
 }
 PROFILE_PATH = ("kmer_score", "profile_dp", "chain_traceback")
+FORBID_PATH = ("kmer_score", "profile_dp_forbid", "chain_traceback")
 GRAPH_PATH = ("kmer_score", "graph_dp", "graph_traceback")
 
 
@@ -339,7 +368,7 @@ def synthetic_profiles(rng, B: int, C: int, M: int):
     return fgq, qmask, np.stack([qlen, crl], axis=1).astype(np.int32)
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, db) -> dict:
     """Each kernel against its plain version on the card, at the main
     path's shapes; all outputs must match exactly."""
     import torch
@@ -423,6 +452,7 @@ def phase_kernels(dev) -> dict:
         f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {counts[0]} cells, "
         f"{insts[0]} instructions, {insts[1]} integer); launch plan "
         f"{pk.profile_dp_plan(M_MAIN)}")
+    out["profile_dp_forbid"] = phase_forbid_kernel(dev, rng, db, fgq, qmask, lens, ms)
 
     bp, bc, bi, _ = got
     emit = pk.chain_traceback(bp, bc, bi)
@@ -446,6 +476,119 @@ def phase_kernels(dev) -> dict:
     traceback_walk_times("chain_traceback", lambda: pk.chain_traceback(bp, bc, bi), ms,
                          steps, pk.chain_traceback_plan(bp), flush)
     return out
+
+
+def forbid_bucket(rng, db, fgq, qmask, lens):
+    """The forbid mode's inputs at the main path's shapes: phase 3's
+    synthetic profiles with a (B, C) budget plane mixing 0, 1, small
+    values, values above M and 10**6 (rows 8-11 all 0, all 1, small
+    and above M), and rows 0-7 replaced by real families of phase 5's
+    reference (40 members of a query's ancestor group, profile built as
+    the aligner builds it) with real queries, whose budgets are the
+    aligner's: the free columns between occupied ones, the last slot
+    the gap to the alignment's end.  Returns numpy (fgq, qmask, lens,
+    budget)."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.ops.align_kernel import DpParams
+    from sina_tpu_torch.ops.profile import build_profiles_packed_batch
+
+    fgq, qmask, lens = fgq.copy(), qmask.copy(), lens.copy()
+    B, C = fgq.shape[:2]
+    M = qmask.shape[1]
+    choices = np.array([0, 0, 0, 1, 1, 2, 3, 5, 9, 17, 40, 200, M, M + 7, 10**6])
+    budget = choices[rng.integers(0, len(choices), (B, C))].astype(np.int32)
+    budget[8], budget[9] = 0, 1
+    budget[10] = rng.integers(0, 4, C)
+    budget[11] = M + 1 + rng.integers(0, 100, C)
+    qs = [q for q in testing.make_queries(db, n=32, seed=21, branch_len=0.7)
+          if len(q.masks) <= M][:8]
+    fams = [db.sequences[int(q.attrs["parent"][3:]) // 64 * 64:][:FAMILY] for q in qs]
+    fg, cols = build_profiles_packed_batch(fams, C, DpParams())
+    for b, (q, c) in enumerate(zip(qs, cols)):
+        fgq[b] = fg[b]
+        qmask[b] = 0
+        qmask[b, :len(q.masks)] = q.masks
+        lens[b] = (len(q.masks), len(c))
+        budget[b] = 0
+        budget[b, :len(c) - 1] = np.diff(c.astype(np.int64)) - 1
+        budget[b, len(c) - 1] = db.width - int(c[-1]) - 1
+    return fgq, qmask, lens, budget
+
+
+def forbid_insts(lens, budget, M: int) -> tuple:
+    """The forbid mode's instructions (all, integer), counted from its
+    plain version over each row's real columns and query length: the
+    per-cell count, the windowed minimum where the budget is >= 1, the
+    budget test once a column and the per-column and per-position work
+    of the shift mode."""
+    ql, cr = lens[:, 0].astype(np.int64), lens[:, 1].astype(np.int64)
+    real = np.arange(budget.shape[1])[None, :] < cr[:, None]
+    window_cells = int((((budget >= 1) & real).sum(axis=1) * ql).sum())
+    cells, cols, pos = int((ql * cr).sum()), int(cr.sum()), int(ql.sum())
+    per_col = tuple(a + b for a, b in zip(PROFILE_INSTS_PER_COLUMN, FORBID_INSTS_PER_COLUMN))
+    per = (FORBID_INSTS_PER_CELL, per_col, PROFILE_INSTS_PER_POSITION)
+    insts = [sum(n * p[k] for n, p in zip((cells, cols, pos), per)) for k in (0, 1)]
+    insts[0] += FORBID_INSTS_PER_WINDOW_CELL * window_cells
+    return tuple(insts), cells
+
+
+def phase_forbid_kernel(dev, rng, db, fgq, qmask, lens, shift_ms: float) -> dict:
+    """The profile DP's bounded-insertion (forbid) mode against its plain
+    version on the card at B = 128, C = 2048, M = 1536: bp, best_c,
+    best_i, raw exact, and the chain traceback's emit on the forbid
+    plane; its time beside the shift mode's on the same profiles, its
+    bound and its launch plan."""
+    import torch
+
+    from sina_tpu_torch.ops import profile_kernel as pk
+    from sina_tpu_torch.ops.align_kernel import DpParams
+
+    fgq, qmask, lens, budget = forbid_bucket(rng, db, fgq, qmask, lens)
+    params = DpParams()
+    fg, qm, ln, bud = (torch.from_numpy(a).to(dev) for a in (fgq, qmask, lens, budget))
+    got = pk.profile_dp(fg, qm, ln, params, budget=bud)
+    ref = pk.profile_dp_plain(fg, qm, ln, params, budget=bud)
+    for n, a, b in zip(("bp", "best_c", "best_i", "raw"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"profile_dp_forbid {n} disagrees with its plain version "
+                                 f"({int((a != b).sum())} cells)")
+    emit = pk.chain_traceback(*got[:3])
+    if not torch.equal(emit, pk.chain_traceback_plain(*ref[:3])):
+        raise AssertionError("chain_traceback on the forbid plane disagrees with its plain "
+                             "version")
+    real_aligned = int((emit[:8] >= 0).sum(dim=1).min())
+    ins = int(((got[0][:, :8] & 3) == 3).sum())
+    ms = time_ms(lambda: pk.profile_dp(fg, qm, ln, params, budget=bud), DP_REPS)
+    shift_same = time_ms(lambda: pk.profile_dp(fg, qm, ln, params), DP_REPS)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pk.profile_dp_plain(fg, qm, ln, params, budget=bud)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    # the kernel's time by budget, the same budget in every cell: below 1
+    # (one barrier a column), 1, a typical gap of a real family, M
+    uniform = {}
+    for r in (0, 1, 33, M_MAIN):
+        u = torch.full_like(bud, r)
+        uniform[r] = round(time_ms(lambda: pk.profile_dp(fg, qm, ln, params, budget=u),
+                                   DP_REPS), 3)
+    insts, cells = forbid_insts(lens, budget, M_MAIN)
+    b = bound(fgq.nbytes + qmask.nbytes + lens.nbytes + budget.nbytes
+              + B_MAIN * C_MAIN * M_MAIN + 12 * B_MAIN, insts=insts)
+    say(f"phase 3 profile_dp_forbid: B={B_MAIN} C={C_MAIN} M={M_MAIN} (rows 0-7 real "
+        f"families and queries, {ins} insertion cells there; fewest bases emitted in a "
+        f"real row {real_aligned}) bp/best_c/best_i/raw and emit exact; kernel {ms:.3f} ms, "
+        f"shift mode on the same profiles {shift_same:.3f} ms ({ms / shift_same:.3f}x; "
+        f"phase 3's shift profiles {shift_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {cells} cells, {insts[0]} "
+        f"instructions, {insts[1]} integer); launch plan "
+        f"{pk.profile_dp_plan(M_MAIN, forbid=True)}; kernel ms with one budget R in "
+        f"every cell {uniform}; budgets >= 1 in {int((budget >= 1).sum())} of "
+        f"{budget.size} cells")
+    return {"max_abs_err": float((got[3] - ref[3]).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 def kmer_bound(kmers, Sb: int) -> dict:
@@ -844,7 +987,8 @@ def turned(seq, turn_slv: str):
 
 def phase_cli(tmp: Path) -> None:
     """The normal entry point on a small generated reference (the
-    verify fixture: 150 refs, width 800, 10 queries)."""
+    verify fixture: 150 refs, width 800, 10 queries), in a working
+    directory of its own (the --debug-lattice dumps land there)."""
     from sina_tpu_torch import cli, testing
     from sina_tpu_torch.io.fasta import FastaWriter
 
@@ -858,25 +1002,52 @@ def phase_cli(tmp: Path) -> None:
     with FastaWriter(str(qin)) as w:
         for q in queries:
             w.write(q)
+    wd, trace = tmp / "cli", tmp / "trace"
+    wd.mkdir()
+    plain_fasta = None
     for extra, attrs in (
             ([], ()), (["--fs-graph"], ()),
             (["--fs-graph", "--insertion", "forbid"], ()),
+            (["--insertion", "forbid"], ()),
+            (["--fs-no-graph", "--insertion", "forbid"], ()),
             (["--use-subst-matrix"], ()),
             (["--turn"], ("turn_slv",)), (["--turn", "all"], ("turn_slv",)),
-            (["-S", "--lca-fields", "tax_slv"], ("nearest_slv", "lca_tax_slv"))):
+            (["-S", "--lca-fields", "tax_slv"], ("nearest_slv", "lca_tax_slv")),
+            (["--debug-lattice", "0:20"], ()),
+            (["--jax-profile-dir", str(trace)], ())):
         t0 = time.perf_counter()
-        rc = cli.main(["-i", str(qin), "-r", str(ref), "-o", str(out),
-                       "--fs-min", "10", "--fs-max", "10", "--fs-full-len",
-                       "400", "--fs-req-gaps", "1", "--meta-fmt", "comment",
-                       "--device", "cuda", "-q", *extra])
+        with contextlib.chdir(wd):
+            rc = cli.main(["-i", str(qin), "-r", str(ref), "-o", str(out),
+                           "--fs-min", "10", "--fs-max", "10", "--fs-full-len",
+                           "400", "--fs-req-gaps", "1", "--meta-fmt", "comment",
+                           "--device", "cuda", "-q", *extra])
         if rc != 0:
             raise AssertionError(f"cli.main {extra} exited {rc}")
         n = check_records(out, queries, db.width, attrs)
         if n != len(queries):
             raise AssertionError(f"cli {extra} wrote {n} of {len(queries)} records")
+        note = ""
+        text = _STAMP.sub("aligned_slv=T", out.read_text())
+        if not extra:
+            plain_fasta = text
+        elif extra[0] == "--debug-lattice":
+            dots = sorted(wd.glob("lattice_*.dot"))
+            if len(dots) != len(queries) or not all(
+                    d.read_text().startswith("digraph") for d in dots):
+                raise AssertionError(f"--debug-lattice wrote {len(dots)} lattice dumps for "
+                                     f"{len(queries)} queries")
+            note = f"; {len(dots)} lattice_<name>.dot dumps written"
+        elif extra[0] == "--jax-profile-dir":
+            traces = [f for f in trace.rglob("*") if f.is_file() and f.stat().st_size]
+            if not traces:
+                raise AssertionError("--jax-profile-dir wrote no trace")
+            if text != plain_fasta:
+                raise AssertionError("--jax-profile-dir changed the FASTA output")
+            note = (f"; trace {traces[0].name} ({traces[0].stat().st_size} bytes), "
+                    "FASTA equal to the run without it")
         say(f"phase 4 cli {' '.join(extra) or '(profile engine)'}: rc=0, "
             f"{n}/{len(queries)} records of width {db.width} with their "
-            f"query bases ({time.perf_counter() - t0:.2f}s)")
+            f"query bases{note} ({time.perf_counter() - t0:.2f}s)")
 
 
 def _run_batches(finder, batches, acfg, device, searcher=None):
@@ -935,9 +1106,20 @@ def device_busy(fn) -> tuple[float, float, list]:
     return sum(ms for ms, _ in per), wall, per
 
 
-def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
-    """100,000 references at width 50,000; 640 full-length queries in
-    five batches of 128 (the first one warms up)."""
+def make_db():
+    """Phase 5's reference (100,000 references at width 50,000), made
+    once before phase 3 (whose forbid check takes real families from
+    it); returns it with the seconds it took."""
+    from sina_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    db = testing.make_reference_large(N_REFS, n_core=1450, width=WIDTH, seed=1234)
+    return db, time.perf_counter() - t0
+
+
+def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, object]:
+    """640 full-length queries in five batches of 128 (the first one
+    warms up) against phase 5's reference."""
     import torch
 
     from sina_tpu_torch import testing
@@ -947,17 +1129,16 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
     from sina_tpu_torch.timing import _registry, reset_all
 
     t0 = time.perf_counter()
-    db = testing.make_reference_large(N_REFS, n_core=1450, width=WIDTH, seed=1234)
     queries = [testing.unaligned_copy(q) for q in
                testing.make_queries(db, n=N_QUERIES, seed=7, branch_len=0.7)]
     pristine = [testing.unaligned_copy(q) for q in queries[:16]]
-    t_gen = time.perf_counter() - t0
+    t_gen = time.perf_counter() - t0 + t_db
     finder = FamFinder(db, FamFinderConfig(
         fs_min=40, fs_max=40, fs_full_len=min(1400, 1450 - 100),
         fs_req_gaps=1), dev)
     P = finder._matrix()
     torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
+    t_setup = time.perf_counter() - t0 + t_db
     say(f"phase 5 setup: {t_setup:.1f}s (generate {t_gen:.1f}s); index "
         f"{tuple(P.shape)} uint8 = {P.numel()} bytes on the card")
 
@@ -1004,7 +1185,7 @@ def phase_main_path(dev, tmp: Path) -> tuple[dict, list, list, object, object]:
         say("phase 5 device busy: not measured (the profiler recorded "
             "no device activity)")
     real_batch_scorer(P, real_kmers[0])
-    return launches, aligned[:16], pristine, finder, db
+    return launches, aligned[:16], pristine, finder
 
 
 @contextlib.contextmanager
@@ -1148,6 +1329,64 @@ def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
             say(f"  device {ms:9.3f} ms  {name[:90]}")
     else:
         say("phase 7 device busy: not measured (the profiler recorded "
+            "no device activity)")
+    return launches, aligned[:16], pristine
+
+
+def phase_forbid_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
+    """The profile engine with --insertion forbid at the main path's
+    scale: 384 full-length queries in three batches of 128 (the first
+    one warms up) with AlignerConfig(insertion="forbid"), against the
+    same reference and famfinder."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.timing import _registry, reset_all
+
+    queries = [testing.unaligned_copy(q) for q in
+               testing.make_queries(db, n=N_FORBID_QUERIES, seed=19, branch_len=0.7)]
+    pristine = [testing.unaligned_copy(q) for q in queries[:16]]
+    batches = [queries[i:i + B_MAIN] for i in range(0, N_FORBID_QUERIES, B_MAIN)]
+    acfg = AlignerConfig(insertion="forbid")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    aligned = _run_batches(finder, batches[:1], acfg, dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    reset_all()
+    t0 = time.perf_counter()
+    aligned += _run_batches(finder, batches[1:], acfg, dev)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    n_steady = N_FORBID_QUERIES - B_MAIN
+    for name, t in _registry.items():
+        say(f"  timings {name}: {t}")
+    out = tmp / "forbid.fasta"
+    fasta_text([a for a in aligned if a is not None], out)
+    n_ok = check_records(out, queries, WIDTH)
+    if n_ok < 0.95 * N_FORBID_QUERIES:
+        raise AssertionError(f"forbid path: only {n_ok} of {N_FORBID_QUERIES} queries aligned")
+    missing = [k for k in FORBID_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the forbid path: {missing}")
+    if launches["profile_dp"]:
+        raise AssertionError("the forbid path launched the shift-mode profile DP")
+    say(f"phase 12 forbid path: {n_ok}/{N_FORBID_QUERIES} aligned, width {WIDTH}, "
+        f"bases preserved; warmup batch {t_warm:.2f}s; steady {n_steady} seqs in "
+        f"{t_steady:.3f}s = {n_steady / t_steady:.2f} seq/s on {gpu_line()}; "
+        f"launches {launches}")
+    busy, wall, per = device_busy(
+        lambda: _run_batches(finder, batches[1:], acfg, dev))
+    if busy > 0:
+        say(f"phase 12 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
+        for ms, name in per[:8]:
+            say(f"  device {ms:9.3f} ms  {name[:90]}")
+    else:
+        say("phase 12 device busy: not measured (the profiler recorded "
             "no device activity)")
     return launches, aligned[:16], pristine
 
@@ -1329,12 +1568,13 @@ def main() -> int:
 
     smi = phase_environment()
     phase_build()
-    timing = phase_kernels(dev)
+    db, t_db = make_db()
+    timing = phase_kernels(dev, db)
     timing.update(phase_graph_kernels(dev))
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
         phase_cli(tmp)
-        launches, gpu16, queries16, finder, db = phase_main_path(dev, tmp)
+        launches, gpu16, queries16, finder = phase_main_path(dev, tmp, db, t_db)
         phase_cpu_parity(finder, gpu16, queries16, tmp, AlignerConfig(),
                          "phase 6")
         glaunches, ggpu16, gqueries16 = phase_graph_path(dev, tmp, finder, db)
@@ -1344,9 +1584,13 @@ def main() -> int:
         tgpu16, tqueries16, tfinder, scfg = phase_turn_search(dev, finder, db)
         phase_cpu_parity(tfinder, tgpu16, tqueries16, tmp, AlignerConfig(),
                          "phase 11", scfg)
+        flaunches, fgpu16, fqueries16 = phase_forbid_path(dev, tmp, finder, db)
+        phase_cpu_parity(finder, fgpu16, fqueries16, tmp,
+                         AlignerConfig(insertion="forbid"), "phase 13")
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     launches["kmer_score_dense"] = dense_launches
+    launches["profile_dp_forbid"] = flaunches["profile_dp_forbid"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timing[name]}

@@ -5,10 +5,11 @@ native containment), the profile engine (column trimming, shape
 buckets and bucket merging, the batched profile DP of ops/profile),
 the graph (mseq) engine (per-family POA graphs, the graph DP and its
 traceback of ops/graph_kernel, or the dense route of ops/align_kernel
-for graphs with far predecessors), and the host NAST finish.  The host
-logic is copied from the reference as it is (byte parity of the output
-depends on it).  Not ported yet: --insertion forbid on the profile
-engine, and --debug-lattice.
+for graphs with far predecessors), and the host NAST finish, with
+--insertion forbid on both engines (the profile DP's bounded-insertion
+mode on the profile engine) and the --debug-lattice dumps of
+debug_dump.  The host logic is copied from the reference as it is
+(byte parity of the output depends on it).
 """
 
 from __future__ import annotations
@@ -587,16 +588,6 @@ def align_dispatch(
     (sina_tpu/align.py:584-806)."""
     cfg = cfg or AlignerConfig()
     engine = cfg.resolved_engine()
-    if engine == "profile" and cfg.insertion == INSERTION_FORBID:
-        raise NotImplementedError(
-            "--insertion forbid on the profile engine is not ported to "
-            "sina_tpu_torch yet; use the JAX package (python -m sina_tpu)"
-        )
-    if cfg.debug_lattice:
-        raise NotImplementedError(
-            "--debug-lattice is not ported to sina_tpu_torch yet; use "
-            "the JAX package (python -m sina_tpu)"
-        )
     device = torch.device(device)
     B = len(queries)
     col_weights_list = col_weights_list or [None] * B
@@ -694,6 +685,22 @@ def align_dispatch(
                     fh.write(graph_to_dot(it[2]))
                 logger.info("wrote %s", fname)
 
+    if todo and cfg.debug_lattice:
+        from .debug_dump import dump_lattice
+
+        lo, _, hi = cfg.debug_lattice.partition(":")
+        col_from = int(lo) if lo else 0
+        col_to = int(hi) if hi else None
+        for it in todo:
+            name = queries[it[0]].name or it[0]
+            fname = f"lattice_{name}.dot"
+            dump_lattice(
+                it[1], [(0.0, r) for r in it[4]], fname,
+                col_from, col_to, cfg.dp_params(), cfg.fs_weight,
+                device=device,
+            )
+            logger.info("wrote %s", fname)
+
     if todo and engine != "graph":
         with get_timer("Aligner").section("count cols"):
             counts = _count_cols_batch([it[4] for it in todo])
@@ -774,6 +781,23 @@ def align_finalize(state) -> list[Sequence | None]:
     for t in thunks:
         t()
     return results
+
+
+def align_sequence(
+    query: Sequence,
+    family: list[tuple[float, Sequence]],
+    cfg: AlignerConfig | None = None,
+    col_weights: np.ndarray | None = None,
+    astats_name: str = "",
+    device: torch.device | str = "cuda",
+) -> Sequence | None:
+    """Align one query against its reference family (single-sequence
+    convenience wrapper over align_dispatch and align_finalize;
+    sina_tpu/align.py:1361-1375)."""
+    cfg = cfg or AlignerConfig()
+    return align_finalize(align_dispatch(
+        [query], [list(family)], cfg, [col_weights], [astats_name], device=device,
+    ))[0]
 
 
 class _StackArena:
@@ -1012,8 +1036,9 @@ def _dispatch_profile_bucket(
     device,
 ):
     """Build one bucket's profiles and launch its DP
-    (sina_tpu/align.py:1134-1358, without the --insertion forbid
-    budget); returns the finalize thunk."""
+    (sina_tpu/align.py:1134-1358; with --insertion forbid each query
+    row also carries its insertion budgets); returns the finalize
+    thunk."""
     from .ops.profile import (
         build_profiles_packed_batch,
         profile_dp_dispatch,
@@ -1023,6 +1048,7 @@ def _dispatch_profile_bucket(
     t = get_timer("Aligner")
     B = len(items)
     width = items[0][4][0].width
+    aspace = cfg.insertion == INSERTION_FORBID
 
     # dedup identical families (amplicon batches repeat them): the
     # profile is built once per UNIQUE family, and each UNIQUE
@@ -1056,12 +1082,14 @@ def _dispatch_profile_bucket(
     # window-restricted builds: when every item of a family carries a
     # column window, its profile (and cols array) only needs the
     # union window — an amplicon batch otherwise builds mostly
-    # out-of-window bases.  Everything downstream (ws ranks, slices, finalize)
+    # out-of-window bases.  aspace (insertion=forbid) keeps full builds:
+    # its boundary budget needs the first occupied column AFTER the
+    # window.  Everything downstream (ws ranks, slices, finalize)
     # already works in the returned cols space.
     fam_windows = None
     _twin = t.section("window calc")
     _twin.__enter__()
-    if any_win:
+    if any_win and not aspace:
         from .ops.profile import can_window_batch
 
         if can_window_batch(ffams):
@@ -1178,20 +1206,35 @@ def _dispatch_profile_bucket(
     qmask = np.zeros((B, mpad), dtype=np.uint8)
     ql = np.zeros(B, dtype=np.int32)
     cr = np.zeros(B, dtype=np.int32)
+    budget = np.zeros((B, cpad), dtype=np.int32) if aspace else None
     for b, it in enumerate(items):
         q = it[1]
         u = int(fam_idx[b])
         fi, ws = row_fam[u], row_ws[u]
-        Cf = len(cols_list[fi])
+        cols_f = cols_list[fi]
+        Cf = len(cols_f)
         end = min(ws + cpad, Cf)
+        wl = end - ws
         qmask[b, : len(q.masks)] = q.masks
         ql[b] = len(q.masks)
-        cr[b] = end - ws
+        cr[b] = wl
+        if aspace and wl > 0:
+            # free columns between occupied columns (mesh.h:480-484);
+            # a trimmed window's last slot gets the gap to the next
+            # occupied column outside the window
+            budget[b, : wl - 1] = (
+                np.diff(cols_f[ws:end].astype(np.int64)) - 1
+            )
+            budget[b, wl - 1] = (
+                width - int(cols_f[-1]) - 1
+                if end == Cf
+                else int(cols_f[end]) - int(cols_f[end - 1]) - 1
+            )
     _tpack.__exit__(None, None, None)
     with t.section("profile dp dispatch"):
         handle = profile_dp_dispatch(
             fgq, qmask, ql, cr, params, device,
-            fam_idx=fam_idx if dedup else None,
+            fam_idx=fam_idx if dedup else None, budget=budget,
         )
 
     def finalize():

@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 The option surface of sina_tpu/cli.py (the reference's CLI contract,
-sina.cpp:379-440), plus --device {cuda,cpu}.  Options whose code is
-not ported yet exit with status 2 and a message naming the JAX
+sina.cpp:379-440), plus --device {cuda,cpu}.  --jax-profile-dir keeps
+the reference's name and writes a torch.profiler trace.  Options whose
+code is not ported yet exit with status 2 and a message naming the JAX
 package; none of them falls back quietly.
 """
 
@@ -20,24 +21,25 @@ from .pipeline import Pipeline, PipelineConfig
 from .search import SearchConfig
 
 
-def _engine(args) -> str:
-    """The alignment engine the parsed options select."""
-    return AlignerConfig(
-        fs_no_graph=args.fs_no_graph,
-        use_subst_matrix=args.use_subst_matrix,
-        engine="graph" if args.fs_graph else "auto",
-    ).resolved_engine()
-
-
 # (test on the parsed arguments, the option as the user wrote it)
 UNPORTED = (
-    # forbid mode runs on the graph engine only
-    (lambda a: a.insertion == "forbid" and _engine(a) == "profile",
-     "--insertion forbid"),
+    # multi-device runs (sina_tpu/parallel) have no counterpart yet
     (lambda a: a.multihost, "--multihost"),
-    (lambda a: bool(a.debug_lattice), "--debug-lattice"),
-    (lambda a: bool(a.jax_profile_dir), "--jax-profile-dir"),
 )
+
+
+def _profiled(trace_dir: str, device):
+    """A torch.profiler context that writes its trace (a Chrome trace
+    JSON, readable by TensorBoard's profiler plugin or Perfetto) into
+    `trace_dir`: the counterpart of the reference's jax.profiler.trace
+    (sina_tpu/cli.py:567-573)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def _split_fields(s: str) -> list[str]:
@@ -117,8 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-q", "--quiet", action="count", default=0)
     p.add_argument("--log-file", default="")
     p.add_argument("--jax-profile-dir", default="",
-                   help="JAX profiler trace (not ported: use python -m "
-                   "sina_tpu)")
+                   help="write a torch.profiler trace of the run (CPU "
+                   "activity, and CUDA activity on the card) to this "
+                   "directory (the option keeps the reference's name)")
     p.add_argument("--show-dist", action="store_true")
     p.add_argument("--show-diff", action="store_true")
     p.add_argument("--colors", action="store_true",
@@ -169,8 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(graph engine)")
     g.add_argument("--debug-lattice", metavar="FROM:TO", default="",
                    help="dump the DP lattice region of alignment "
-                   "columns [FROM, TO) per query (not ported: use "
-                   "python -m sina_tpu)")
+                   "columns [FROM, TO) per query to "
+                   "lattice_<name>.dot (cell values, gap tracks, "
+                   "backpointer edges; small regions only)")
 
     g = p.add_argument_group("Reference Selection")
     g.add_argument("--fs-engine", default="internal",
@@ -572,7 +576,11 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Configuration error:\n{e}", file=sys.stderr)
         return 1
     try:
-        summary = pipe.run()
+        if args.jax_profile_dir:
+            with _profiled(args.jax_profile_dir, pipe.device):
+                summary = pipe.run()
+        else:
+            summary = pipe.run()
     except (OSError, ValueError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

@@ -116,7 +116,7 @@ def _dense_sub(j, mask, qm, subw, match, mismatch, sq, pq):
 
 def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
                  n_real, col_weights, params: DpParams, max_insert=None,
-                 subst=None):
+                 subst=None, return_lattice: bool = False):
     """The dense graph DP over whole (N+1, M) lattices, batched: the
     cost set-up of poa_dp / poa_dp_forbid (or poa_dp_subst with
     `subst` (B, 4, 4)) and poa_dp_costs (align_kernel.py:409-545).
@@ -124,7 +124,9 @@ def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
     is_start/is_end (B, N) bool, qmask (B, M), qlen/n_real (B,),
     col_weights (B, W) f32, max_insert (B, N) for forbid mode.
     Returns (bp (B, N, M) int16 slot-coded, best_j, best_i (B,) int64,
-    raw (B,) f32)."""
+    raw (B,) f32); with `return_lattice` also the final V and D value
+    planes (B, N, M) f32 (the --debug-lattice dump,
+    align_kernel.py:423,543)."""
     dev = qmask.device
     f32, i64 = torch.float32, torch.int64
     B, N = pos.shape
@@ -260,6 +262,8 @@ def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
     best_j = torch.where(use2, b2j, b1j)
     best_i = torch.where(use2, b2i, ql[:, 0] - 1)
     raw = torch.where(use2, b2v, b1v)
+    if return_lattice:
+        return BP, best_j, best_i, raw, V[:, 1:], D[:, 1:]
     return BP, best_j, best_i, raw
 
 

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 )
 
 launches = {"kmer_score": 0, "kmer_score_dense": 0,
-            "profile_dp": 0, "chain_traceback": 0,
+            "profile_dp": 0, "profile_dp_forbid": 0, "chain_traceback": 0,
             "graph_dp": 0, "graph_traceback": 0,
             # not kernels: graph buckets that took the dense route
             # (ops/align_kernel.poa_dp_dense), and graph_dp launches whose
@@ -133,10 +133,10 @@ def lib() -> ctypes.CDLL:
         so.sina_kmer_score_dense.argtypes = [P, P, P, LL, LL, I, I, P]
         so.sina_kmer_score_dense.restype = I
         so.sina_profile_dp.argtypes = [
-            P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F, P,
+            P, P, P, P, P, P, P, P, P, I, I, I, F, F, F, F, F, F, P,
         ]
         so.sina_profile_dp.restype = I
-        so.sina_profile_dp_plan.argtypes = [I, P]
+        so.sina_profile_dp_plan.argtypes = [I, I, P]
         so.sina_profile_dp_plan.restype = I
         so.sina_chain_traceback.argtypes = [P, P, P, P, I, I, I, P]
         so.sina_chain_traceback.restype = I

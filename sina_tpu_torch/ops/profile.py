@@ -311,16 +311,18 @@ def _bucket_rows(n: int) -> int:
 
 def profile_dp_dispatch(
     fgq: np.ndarray, qmask: np.ndarray, qlen, c_real,
-    params: DpParams, device: torch.device, fam_idx=None,
+    params: DpParams, device: torch.device, fam_idx=None, budget=None,
 ):
     """Upload one bucket and launch the profile DP and its traceback
     WITHOUT fetching (sina_tpu/ops/profile.py:910-1012, without the
     TPU wire buffer and the XLA fallback): fgq (U, C, 6) uint8
     quantised profiles, qmask (B, M) uint8, qlen/c_real (B,) numpy.
     With `fam_idx` (B,) fgq holds the U <= B unique profiles and
-    query b aligns against row fam_idx[b] (the kernel gathers).  The
-    batch pads to _bucket_rows(B) with rows of lens (1, 1); dedup
-    padding rows gather unique row 0.  Returns a handle for
+    query b aligns against row fam_idx[b] (the kernel gathers).
+    `budget` (B, C) int32, one row per query (also under fam_idx),
+    runs the bounded-insertion mode (--insertion forbid).  The batch
+    pads to _bucket_rows(B) with rows of lens (1, 1) and zero budgets;
+    dedup padding rows gather unique row 0.  Returns a handle for
     profile_dp_fetch."""
     t = get_timer("ProfileDP")
     dedup = fam_idx is not None
@@ -350,6 +352,10 @@ def profile_dp_dispatch(
             lens = np.concatenate(
                 [lens, np.ones((pad, 2), dtype=np.int32)]
             )
+            if budget is not None:
+                budget = np.concatenate(
+                    [budget, np.zeros((pad, fg.shape[1]), dtype=np.int32)]
+                )
     with t.section("h2d"):
         def up(a, dtype):
             return torch.from_numpy(
@@ -360,8 +366,9 @@ def profile_dp_dispatch(
         qm_d = up(qmask, np.uint8)
         lens_d = up(lens, np.int32)
         fi_d = up(fam_idx, np.int32) if dedup else None
+        bud_d = up(budget, np.int32) if budget is not None else None
     with t.section("launch"):
-        bp, bc, bi, raw = profile_dp(fg_d, qm_d, lens_d, params, fi_d)
+        bp, bc, bi, raw = profile_dp(fg_d, qm_d, lens_d, params, fi_d, bud_d)
         emit = chain_traceback(bp, bc, bi)
         # one (B_pad, M+3) int32 result = one device-to-host copy
         out = torch.cat(

@@ -12,7 +12,12 @@ profile._unpack_log_result) or runs ``chain_traceback_plain``.
 Semantics are the Pallas kernel's, including its ``ins_opened`` test
 ``(Uprev + go) <= (Iprev + ge)`` — the XLA chain_dp additionally ORs
 in ``Irow + 1e-4 < Iprev + ge`` (sina_tpu/ops/profile.py:468-470); the
-TPU ran the Pallas semantics.
+TPU ran the Pallas semantics.  With a ``budget`` (B, C) int32 the DP
+runs the bounded-insertion mode of --insertion forbid, which the
+reference runs only through the XLA chain_dp (its aspace branch,
+sina_tpu/ops/profile.py:446-470): no edge seed, insertion runs bounded
+by a trailing-window minimum of R = clip(budget, 1, M) lanes, BIG
+where the budget is below 1, and the XLA ``ins_opened`` rule.
 
 Layouts: fgq (U, C, 6) uint8 quantised profiles (4 freq bytes x/255 +
 int16 gap cost / gap_scale); qmask (B, M) uint8 IUPAC masks; lens
@@ -27,7 +32,9 @@ import numpy as np
 import torch
 
 from . import kernels
-from .align_kernel import BIG, CODE_DEL, CODE_EDGE, CODE_INS, CODE_MATCH, DpParams
+from .align_kernel import (
+    BIG, CODE_DEL, CODE_EDGE, CODE_INS, CODE_MATCH, DpParams, _windowed_min,
+)
 
 # traceback states (sina_tpu/ops/profile_pallas.py:299-304)
 _S_RESOLVE = 0
@@ -71,11 +78,15 @@ def _shift_right(x: torch.Tensor, n: int, fill: torch.Tensor) -> torch.Tensor:
     return torch.cat([fill.expand(x.shape[0], n), x[:, :-n]], dim=1)
 
 
-def profile_dp_plain(fgq, qmask, lens, params: DpParams, fam_idx=None):
+def profile_dp_plain(fgq, qmask, lens, params: DpParams, fam_idx=None,
+                     budget=None):
     """Plain PyTorch version: a Python loop over the C columns on
     (B, M) tensors, the insertion prefix-min by doubling, every f32
-    operation in the Pallas kernel's order.  Returns (bp (C, B, M)
-    uint8, best_c (B,) int32, best_i (B,) int32, raw (B,) f32)."""
+    operation in the Pallas kernel's order.  With `budget` (B, C)
+    int32 (one per query row, also under fam_idx), each column takes
+    chain_dp's bounded-insertion branch in its f32 order
+    (sina_tpu/ops/profile.py:446-470).  Returns (bp (C, B, M) uint8,
+    best_c (B,) int32, best_i (B,) int32, raw (B,) f32)."""
     dev = qmask.device
     f32 = torch.float32
     s = _scalars(params)
@@ -84,7 +95,7 @@ def profile_dp_plain(fgq, qmask, lens, params: DpParams, fam_idx=None):
         return torch.tensor(v, dtype=f32, device=dev)
 
     go, ge, m_mm, mm = c(s["go"]), c(s["ge"]), c(s["m_minus_mm"]), c(s["mm"])
-    big, one, zero = c(BIG), c(1.0), c(0.0)
+    big, one, zero, eps = c(BIG), c(1.0), c(0.0), c(1e-4)
 
     fq, gc = unpack_fgq(fgq, params)
     if fam_idx is not None:
@@ -142,12 +153,21 @@ def profile_dp_plain(fgq, qmask, lens, params: DpParams, fam_idx=None):
         code = torch.where(take_m, CODE_MATCH, code)
 
         x = U + go - ramp1
-        n = 1
-        while n < M:
-            x = torch.minimum(x, _shift_right(x, n, big1))
-            n *= 2
-        Irow = torch.minimum(_shift_right(x, 1, big1), one) + ramp
-        ins_opened = (_shift_right(U, 1, big1) + go) <= (_shift_right(Irow, 1, big1) + ge)
+        if budget is None:
+            n = 1
+            while n < M:
+                x = torch.minimum(x, _shift_right(x, n, big1))
+                n *= 2
+            Irow = torch.minimum(_shift_right(x, 1, big1), one) + ramp
+            ins_opened = (_shift_right(U, 1, big1) + go) <= (_shift_right(Irow, 1, big1) + ge)
+        else:
+            # bounded runs, no edge seed (mesh.h:403-437)
+            bud = budget[:, j:j + 1]
+            prefix = _shift_right(_windowed_min(x, bud, M), 1, big1)
+            Irow = torch.where(bud < 1, big, prefix) + ramp
+            iprev_ge = _shift_right(Irow, 1, big1) + ge
+            ins_opened = (((_shift_right(U, 1, big1) + go) <= iprev_ge)
+                          | (Irow + eps < iprev_ge))
         take_i = Irow <= U
         Vrow = torch.where(take_i, Irow, U)
         code = torch.where(take_i, CODE_INS, code)
@@ -174,12 +194,13 @@ def profile_dp_plain(fgq, qmask, lens, params: DpParams, fam_idx=None):
     return bp, best_c, best_i, raw
 
 
-def profile_dp(fgq, qmask, lens, params: DpParams, fam_idx=None):
+def profile_dp(fgq, qmask, lens, params: DpParams, fam_idx=None, budget=None):
     """The fused profile DP; see profile_dp_plain for the contract.
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (or raise)."""
+    (or raise).  With `budget` the kernel's bounded-insertion mode
+    runs, counted as ``profile_dp_forbid``."""
     if qmask.device.type == "cpu":
-        return profile_dp_plain(fgq, qmask, lens, params, fam_idx)
+        return profile_dp_plain(fgq, qmask, lens, params, fam_idx, budget)
     dev = qmask.device
     kernels.require_cuda("fgq", fgq, torch.uint8, dev, 3)
     kernels.require_cuda("qmask", qmask, torch.uint8, dev, 2)
@@ -188,6 +209,10 @@ def profile_dp(fgq, qmask, lens, params: DpParams, fam_idx=None):
         kernels.require_cuda("fam_idx", fam_idx, torch.int32, dev, 1)
     B, M = qmask.shape
     U, C, six = fgq.shape
+    if budget is not None:
+        kernels.require_cuda("budget", budget, torch.int32, dev, 2)
+        if budget.shape != (B, C):
+            raise ValueError(f"budget has shape {tuple(budget.shape)}, expected {(B, C)}")
     if six != 6 or lens.shape != (B, 2):
         raise ValueError(f"bad shapes: fgq {tuple(fgq.shape)}, lens {tuple(lens.shape)}")
     if fam_idx is None and U != B or fam_idx is not None and fam_idx.shape != (B,):
@@ -201,23 +226,26 @@ def profile_dp(fgq, qmask, lens, params: DpParams, fam_idx=None):
     s = _scalars(params)
     err = kernels.lib().sina_profile_dp(
         fgq.data_ptr(), fam_idx.data_ptr() if fam_idx is not None else None,
-        qmask.data_ptr(), lens.data_ptr(), bp.data_ptr(), best_c.data_ptr(),
-        best_i.data_ptr(), raw.data_ptr(), B, C, M,
+        qmask.data_ptr(), lens.data_ptr(),
+        budget.data_ptr() if budget is not None else None, bp.data_ptr(),
+        best_c.data_ptr(), best_i.data_ptr(), raw.data_ptr(), B, C, M,
         s["go"], s["ge"], s["m_minus_mm"], s["mm"], s["inv255"],
         s["inv_gap_scale"], kernels.stream_ptr(dev),
     )
-    kernels.check(err, "profile_dp")
-    kernels.launches["profile_dp"] += 1
+    name = "profile_dp" if budget is None else "profile_dp_forbid"
+    kernels.check(err, name)
+    kernels.launches[name] += 1
     return bp, best_c, best_i, raw
 
 
-def profile_dp_plan(M: int) -> dict:
-    """The profile DP kernel's launch plan (needs the card): lanes a
-    thread, threads, static shared memory bytes a block, registers a
-    thread."""
+def profile_dp_plan(M: int, forbid: bool = False) -> dict:
+    """The profile DP kernel's launch plan (needs the card), for the
+    shift mode or the bounded-insertion (forbid) mode: lanes a thread,
+    threads, static shared memory bytes a block, registers a thread,
+    dynamic shared memory bytes a block."""
     lib = kernels.lib()
-    out = kernels.plan(lib.sina_profile_dp_plan, M, n=4)
-    return dict(zip(("lanes", "threads", "static_smem", "regs"), out))
+    out = kernels.plan(lib.sina_profile_dp_plan, M, int(forbid), n=5)
+    return dict(zip(("lanes", "threads", "static_smem", "regs", "dyn_smem"), out))
 
 
 def _walk(bp_b: np.ndarray, j: int, i: int, emit_b: np.ndarray) -> int:

@@ -323,6 +323,71 @@ def test_profile_dp_rejects_unsupported_m(cuda):
         pk.profile_dp(fgq.to(cuda), qmask.to(cuda), lens.to(cuda), DpParams())
 
 
+def _budgets(seed, B, C, M):
+    """(B, C) int32 insertion budgets for the forbid mode: row 0 all 0,
+    row 1 all 1, row 2 small (0-3), row 3 above M, the rest a mix of 0,
+    1, small, mid-size, M - 1, M, above M and 10**6."""
+    rng = np.random.default_rng(seed)
+    choices = np.array([0, 0, 1, 2, 3, 5, 9, 17, 33, 100, M - 1, M, M + 3, 10**6])
+    bud = choices[rng.integers(0, len(choices), (B, C))]
+    for b, row in enumerate((np.zeros(C), np.ones(C), rng.integers(0, 4, C),
+                             M + 1 + rng.integers(0, 50, C))[:B]):
+        bud[b] = row
+    return torch.from_numpy(bud.astype(np.int32))
+
+
+@pytest.mark.parametrize(
+    "B,C,M",
+    [(1, 1, 4), (4, 17, 8), (9, 96, 132), (5, 300, 1536), (3, 257, 2052), (2, 40, 4100),
+     (2, 20, 8200), (1, 5, 16384)],
+)
+def test_profile_dp_forbid_matches_plain(cuda, B, C, M):
+    """The bounded-insertion mode at the thread-count edges, the 4, 8
+    and 16 lanes-a-thread instantiations, C past the 256-column staging
+    chunk and M up to the kernel's limit: bp, best_c, best_i, raw and
+    the chain traceback's emit exact; counted as profile_dp_forbid."""
+    fgq, qmask, lens = _profiles(B * C + M + 1, B, C, M)
+    budget = _budgets(B + C + M, B, C, M)
+    params = DpParams()
+    before = dict(kernels.launches)
+    got = pk.profile_dp(fgq.to(cuda), qmask.to(cuda), lens.to(cuda), params,
+                        budget=budget.to(cuda))
+    assert kernels.launches["profile_dp_forbid"] == before["profile_dp_forbid"] + 1
+    assert kernels.launches["profile_dp"] == before["profile_dp"]
+    want = pk.profile_dp_plain(fgq, qmask, lens, params, budget=budget)
+    _equal(got, want)
+    _equal([pk.chain_traceback(*got[:3])], [pk.chain_traceback_plain(*want[:3])])
+    plan = pk.profile_dp_plan(M, forbid=True)
+    assert plan["dyn_smem"] >= 4 * M and pk.profile_dp_plan(M)["dyn_smem"] == 0
+
+
+def test_profile_dp_forbid_fam_idx_gather(cuda):
+    """Rows share profiles through fam_idx while each keeps its own
+    budgets; constants that f32 cannot hold."""
+    fgq, qmask, lens = _profiles(9, 8, 64, 64)
+    fam = torch.tensor([3, 0, 3, 1, 2, 0, 1, 3], dtype=torch.int32)
+    budget = _budgets(10, 8, 64, 64)
+    params = DpParams(-2.3, 1.1, 5.3, 2.1)
+    u = fgq[:4].contiguous()
+    got = pk.profile_dp(u.to(cuda), qmask.to(cuda), lens.to(cuda), params, fam.to(cuda),
+                        budget.to(cuda))
+    _equal(got, pk.profile_dp_plain(u, qmask, lens, params, fam, budget))
+
+
+def test_profile_dp_forbid_rejects_bad_budget(cuda):
+    fgq, qmask, lens = _profiles(2, 3, 16, 8)
+    args = [a.to(cuda) for a in (fgq, qmask, lens)]
+    budget = _budgets(3, 3, 16, 8)
+    with pytest.raises(TypeError, match="budget"):
+        pk.profile_dp(*args, DpParams(), budget=budget.long().to(cuda))
+    with pytest.raises(ValueError, match="budget"):
+        pk.profile_dp(*args, DpParams(), budget=budget[:, :8].contiguous().to(cuda))
+    with pytest.raises(ValueError, match="budget"):
+        pk.profile_dp(*args, DpParams(), budget=budget.to(cuda).t().contiguous().t())
+    with pytest.raises(ValueError, match="budget"):
+        pk.profile_dp(*args, DpParams(), budget=budget)
+
+
 def _graph_bucket(seed, B, extra_nodes, mpad):
     """B family graphs of 6 references, padded with `extra_nodes`
     padding nodes past the largest, and B queries in a (B, mpad)

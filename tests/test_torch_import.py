@@ -1,5 +1,5 @@
-"""The port imports neither jax nor the JAX package, and its CLI refuses
-what is not ported."""
+"""The port imports neither jax nor the JAX package, its CLI refuses
+what is not ported (--multihost) and runs the options ported since."""
 
 import subprocess
 import sys
@@ -42,6 +42,7 @@ PORT_MODULES = [
     "sina_tpu_torch.ops.graph_kernel",
     "sina_tpu_torch.ops.profile",
     "sina_tpu_torch.ops.profile_kernel",
+    "sina_tpu_torch.debug_dump",
 ]
 
 # installs a sys.meta_path hook that makes every import of jax, jaxlib
@@ -154,12 +155,7 @@ def test_cli_turn_and_search_without_jax(tmp_path):
 @pytest.mark.parametrize(
     "argv",
     [
-        pytest.param(["--fs-graph", "--debug-lattice", "0:10"], id="argv0"),
-        pytest.param(["--fs-no-graph", "--insertion", "forbid"], id="argv1"),
-        pytest.param(["--insertion", "forbid"], id="argv2"),
         pytest.param(["--multihost"], id="argv7"),
-        pytest.param(["--debug-lattice", "0:10"], id="argv8"),
-        pytest.param(["--jax-profile-dir", "prof"], id="argv9"),
     ],
 )
 def test_unported_options_exit_2(argv, capsys):
@@ -224,6 +220,62 @@ def test_ported_options_run(argv, small_fixture, tmp_path):
     else:
         assert all(r.get_attr("nearest_slv") is not None for r in recs)
         assert any(r.get_attr("nearest_slv") for r in recs)
+
+
+def _run_cli(d, wd, argv):
+    """The port's CLI on the small fixture in working directory `wd`;
+    returns its FASTA text with the `aligned_slv` stamps masked."""
+    import contextlib
+    import re
+
+    from sina_tpu_torch import cli
+
+    wd.mkdir(exist_ok=True)
+    out = wd / "out.fasta"
+    with contextlib.chdir(wd):
+        rc = cli.main(["-i", str(d / "q.fasta"), "-r", str(d / "ref.fasta"), "-o", str(out),
+                       "--fs-min", "10", "--fs-max", "10", "--fs-full-len", "300",
+                       "--fs-req-gaps", "1", "--meta-fmt", "comment", "--device", "cpu",
+                       "-q", *argv])
+    assert rc == 0
+    return re.sub(r"aligned_slv=[^\]\n]*", "aligned_slv=T", out.read_text())
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        pytest.param(["--fs-graph", "--debug-lattice", "0:10"], id="argv0"),
+        pytest.param(["--fs-no-graph", "--insertion", "forbid"], id="argv1"),
+        pytest.param(["--insertion", "forbid"], id="argv2"),
+        pytest.param(["--debug-lattice", "0:10"], id="argv8"),
+        pytest.param(["--jax-profile-dir", "prof"], id="argv9"),
+    ],
+)
+def test_formerly_refused_options_run(argv, small_fixture, tmp_path):
+    """The options that exited 2 until the profile engine's forbid mode,
+    --debug-lattice and --jax-profile-dir were ported now run on the
+    CPU: every query aligned with its own bases; with --debug-lattice
+    one lattice_<name>.dot a query that reached the DP; with
+    --jax-profile-dir a torch.profiler trace and the same FASTA as
+    without it; forbid mode places no base in a column the reference
+    alignment does not have (the width stays the reference's)."""
+    from sina_tpu_torch.io.fasta import read_fasta
+
+    d = small_fixture
+    text = _run_cli(d, tmp_path / "run", argv)
+    recs = list(read_fasta(str(tmp_path / "run" / "out.fasta")))
+    assert len(recs) == 6
+    queries = {q.name: q for q in read_fasta(str(d / "q.fasta"))}
+    for r in recs:
+        assert r.width == 500
+        assert r.get_bases().upper() == queries[r.name].get_bases().upper()
+    if "--debug-lattice" in argv:
+        dots = sorted((tmp_path / "run").glob("lattice_*.dot"))
+        assert dots and all(p.read_text().startswith("digraph {") for p in dots)
+    if "--jax-profile-dir" in argv:
+        traces = [p for p in (tmp_path / "run" / "prof").iterdir() if p.stat().st_size]
+        assert traces and traces[0].name.endswith(".pt.trace.json")
+        assert text == _run_cli(d, tmp_path / "plain", [])
 
 
 def test_cuda_device_without_gpu_fails_loudly(tmp_path, capsys):
