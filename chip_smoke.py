@@ -75,7 +75,25 @@ Phases, each printing a line:
      full-length queries in three batches of 128 (the first warms up)
      with AlignerConfig(insertion="forbid"), with its kernels' launch
      counts and the device's busy share;
- 13. the first 16 of those again with device="cpu": identical records.
+ 13. the first 16 of those again with device="cpu": identical records;
+ 14. the sharded search (sina_tpu_torch/parallel) at scale: phase 5's
+     index in the tiled layout (131,072 padded references, 4.3 GB) on
+     meshes of the card named 4 times, (dp, mp) = (1, 4) and (2, 2),
+     for the k-mer ids of a steady phase-5 batch at k = 256 and 1,000:
+     values equal to the unsharded score_topk's, every id reaching its
+     value, the first 16 queries' values and ids equal to the same mesh
+     on the cpu; the kmer_score launches and the time a call;
+ 15. famfinder on the (1, 4) mesh: 128 full-length queries through
+     famfinder, aligner and the FASTA writer, with its kernels' launch
+     counts; the first 16 again on the same mesh shape on the cpu:
+     identical records;
+ 16. --multihost: two processes of python -m sina_tpu_torch --device
+     cuda --multihost on the card, on phase 4's reference: their .part
+     files hold every query once, each record equal to one process's;
+ 17. dryrun_multichip over the card named 8 times ((2, 4)): the tiny
+     sharded search, the graph DP data-parallel over 8 devices equal to
+     one device's, and the sharded search on a zero-filled 17.2 GB
+     tiled index at SILVA NR's 450k references.
 
 The second-to-last line is the kernels' JSON record, the line before
 it the card's `nvidia-smi` name and power limit, and the last line
@@ -1117,7 +1135,7 @@ def make_db():
     return db, time.perf_counter() - t0
 
 
-def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, object]:
+def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, object, object]:
     """640 full-length queries in five batches of 128 (the first one
     warms up) against phase 5's reference."""
     import torch
@@ -1185,7 +1203,7 @@ def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, 
         say("phase 5 device busy: not measured (the profiler recorded "
             "no device activity)")
     real_batch_scorer(P, real_kmers[0])
-    return launches, aligned[:16], pristine, finder
+    return launches, aligned[:16], pristine, finder, real_kmers[0]
 
 
 @contextlib.contextmanager
@@ -1556,6 +1574,202 @@ def phase_turn_search(dev, finder, db):
     return out[:16], pristine[:16], tf, scfg
 
 
+def phase_sharded_search(dev, finder, kmers) -> None:
+    """Phase 5's 100k-reference index in the tiled layout (131,072
+    padded references, 262,145 x 16,384 bytes) on meshes of the card
+    named 4 times, (1, 4) and (2, 2), searched with the k-mer ids of a
+    steady phase-5 batch at k = 256 and 1,000: values equal the
+    unsharded score_topk's, every id reaches its value on the unsharded
+    matrix, and the first 16 queries' values and ids equal the same
+    mesh shape's on the cpu (the plain versions)."""
+    import torch
+
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.ops import kmer_kernel as kk
+    from sina_tpu_torch.parallel.sharding import make_mesh, shard_index_matrix, sharded_search
+
+    cpu = torch.device("cpu")
+    smi = gpu_line()
+    P = finder._matrix()
+    scores = kk.kmer_scores(P, kmers)
+    t0 = time.perf_counter()
+    P3 = finder.index.dense_packed_tiled(byte_multiple=4096 * 4)
+    say(f"phase 14 tiled index: {P3.shape} uint8 = {P3.nbytes} bytes on the host "
+        f"({time.perf_counter() - t0:.1f}s), {8 * P3.shape[1] * P3.shape[2]} padded "
+        f"references; queries B={kmers.shape[0]} L={kmers.shape[1]}")
+    for dp in (1, 2):
+        mesh, cmesh = make_mesh([dev] * 4, dp=dp), make_mesh([cpu] * 4, dp=dp)
+        shape = f"(dp={dp}, mp={mesh.shape['mp']})"
+        t0 = time.perf_counter()
+        Pm = shard_index_matrix(mesh, P3)
+        torch.cuda.synchronize()
+        t_place = time.perf_counter() - t0
+        Pc = shard_index_matrix(cmesh, P3)
+        shard = Pm.shards[0][0]
+        shard_ms = time_ms(lambda: kk.kmer_scores(shard, kmers[:kmers.shape[0] // dp],
+                                                  gmax=True), 10)
+        for k in (256, 1000):
+            fn = sharded_search(mesh, k)
+            kernels.reset_launches()
+            vals, ids = fn(Pm, kmers)
+            torch.cuda.synchronize()
+            launches = kernels.launches["kmer_score"]
+            if launches != 4:
+                raise AssertionError(f"phase 14 {shape}: {launches} kmer_score launches, not 4")
+            one = kk.score_topk(P, kmers, k)
+            if not torch.equal(vals, one[:, :k]):
+                raise AssertionError(f"phase 14 {shape} k={k}: values differ from score_topk's")
+            inside = ids < scores.shape[1]
+            reached = torch.gather(scores, 1, ids.long().clamp(max=scores.shape[1] - 1))
+            if not bool(torch.where(inside, reached == vals, vals == 0).all()):
+                raise AssertionError(f"phase 14 {shape} k={k}: an id misses its value")
+            cv, ci = sharded_search(cmesh, k)(Pc, kmers[:16].cpu())
+            if not (torch.equal(vals[:16].cpu(), cv) and torch.equal(ids[:16].cpu(), ci)):
+                raise AssertionError(f"phase 14 {shape} k={k}: card and cpu meshes differ")
+            ms = time_ms(lambda: fn(Pm, kmers), 10)
+            one_ms = time_ms(lambda: kk.score_topk(P, kmers, k), 10)
+            tied = int((ids != one[:, k:]).any(dim=1).sum())
+            say(f"phase 14 sharded search {shape} k={k}: {launches} kmer_score launches a "
+                f"call, {ms:.3f} ms a call (CUDA events, 10 calls), unsharded score_topk "
+                f"{one_ms:.3f} ms, on {smi}; one shard's kernel {shard_ms:.3f} ms on {smi}; "
+                f"values equal the unsharded; ids differ from its on ties in {tied} of "
+                f"{kmers.shape[0]} queries; 16 queries' values and ids equal on the card and "
+                f"the cpu mesh; shards placed in {t_place:.1f}s")
+        del Pm, Pc, shard
+    del P3, scores
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_famfinder(dev, tmp: Path, finder, db):
+    """128 full-length queries through famfinder on a mesh of the card
+    named 4 times (mp = 4: the tiled index in four 1.07 GB shards),
+    the aligner and the FASTA writer, its kernels' launch counts."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.famfinder import FamFinder
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.parallel.sharding import make_mesh
+
+    queries = [testing.unaligned_copy(q) for q in
+               testing.make_queries(db, n=B_MAIN, seed=29, branch_len=0.7)]
+    pristine = [q.copy() for q in queries[:16]]
+    t0 = time.perf_counter()
+    mf = FamFinder(db, finder.cfg, dev, mesh=make_mesh([dev] * 4, dp=1))
+    Pm = mf._matrix()
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = _run_batches(mf, [queries], AlignerConfig(), dev)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    missing = [k for k in PROFILE_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mesh's path: {missing}")
+    path = tmp / "mesh.fasta"
+    fasta_text([a for a in out if a is not None], path)
+    n_ok = check_records(path, queries, WIDTH)
+    if n_ok < 0.95 * B_MAIN:
+        raise AssertionError(f"mesh famfinder: only {n_ok} of {B_MAIN} queries aligned")
+    say(f"phase 15 famfinder on a (dp=1, mp=4) mesh of {dev}: {'tiled' if Pm.tiled else 'flat'} "
+        f"index {Pm.shape} built and placed in 4 shards in {t_place:.1f}s; {n_ok}/{B_MAIN} aligned, width {WIDTH}, "
+        f"bases preserved, in {took:.3f}s (one batch, cold) on {gpu_line()}; launches "
+        f"{launches}")
+    return out[:16], pristine, mf
+
+
+def phase_multihost(tmp: Path) -> None:
+    """Two processes of python -m sina_tpu_torch --device cuda
+    --multihost on one card, on phase 4's reference: the .part files
+    cover every query once, each record equal to one process's run."""
+    import os
+    import socket
+
+    from sina_tpu_torch import cli, testing
+    from sina_tpu_torch.io.fasta import FastaWriter
+
+    d = tmp / "multihost"
+    d.mkdir()
+    db = testing.make_reference(n_seqs=150, n_core=500, width=800, seed=42)
+    with FastaWriter(str(d / "ref.fasta"), meta="comment") as w:
+        for s in db.sequences:
+            w.write(s)
+    with FastaWriter(str(d / "q.fasta")) as w:
+        for q in testing.make_queries(db, n=10, seed=7, branch_len=0.6):
+            w.write(testing.unaligned_copy(q))
+    args = ["-i", str(d / "q.fasta"), "-r", str(d / "ref.fasta"), "--fs-min", "10",
+            "--fs-max", "10", "--fs-full-len", "400", "--fs-req-gaps", "1",
+            "--meta-fmt", "comment", "--device", "cuda", "-q"]
+    if cli.main([*args, "-o", str(d / "single.fasta")]) != 0:
+        raise AssertionError("phase 16: the one-process run failed")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sina_tpu_torch", *args, "-o", str(d / "out.fasta"),
+         "--multihost", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(i)],
+        cwd=str(repo), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    took = time.perf_counter() - t0
+    for i, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 16: process {i} exited {p.returncode}: {err[-2000:]}")
+
+    def records(path: Path) -> dict:
+        out = {}
+        for line in _STAMP.sub("aligned_slv=T", path.read_text()).splitlines():
+            if line.startswith(">"):
+                out[line[1:].split()[0]] = []
+            out[next(reversed(out))].append(line)
+        return out
+
+    parts = [records(d / f"out.fasta.part{i}") for i in range(2)]
+    want = records(d / "single.fasta")
+    if set(parts[0]) & set(parts[1]) or {**parts[0], **parts[1]} != want or len(want) != 10:
+        raise AssertionError("phase 16: the parts do not hold the one-process run's records once each")
+    say(f"phase 16 --multihost: 2 processes on one card ({gpu_line()}), parts of "
+        f"{len(parts[0])} and {len(parts[1])} records, together every query once, each "
+        f"record equal to the one-process cuda run's; {took:.1f}s for both processes")
+
+
+def phase_dryrun(dev) -> None:
+    """dryrun_multichip over the card named 8 times ((dp=2, mp=4)),
+    the 17.2 GB NR-scale tiled index included."""
+    import torch
+
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip([dev] * 8)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    missing = [k for k in ("kmer_score", "graph_dp", "graph_traceback") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the dry run: {missing}")
+    say(f"phase 17 dryrun_multichip over {dev} x 8: {took:.1f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {gpu_line()}; launches "
+        f"{launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1574,7 +1788,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
         phase_cli(tmp)
-        launches, gpu16, queries16, finder = phase_main_path(dev, tmp, db, t_db)
+        launches, gpu16, queries16, finder, kmers = phase_main_path(dev, tmp, db, t_db)
         phase_cpu_parity(finder, gpu16, queries16, tmp, AlignerConfig(),
                          "phase 6")
         glaunches, ggpu16, gqueries16 = phase_graph_path(dev, tmp, finder, db)
@@ -1587,6 +1801,12 @@ def main() -> int:
         flaunches, fgpu16, fqueries16 = phase_forbid_path(dev, tmp, finder, db)
         phase_cpu_parity(finder, fgpu16, fqueries16, tmp,
                          AlignerConfig(insertion="forbid"), "phase 13")
+        phase_sharded_search(dev, finder, kmers)
+        mgpu16, mqueries16, mfinder = phase_mesh_famfinder(dev, tmp, finder, db)
+        phase_cpu_parity(mfinder, mgpu16, mqueries16, tmp, AlignerConfig(), "phase 15")
+        del mfinder
+        phase_multihost(tmp)
+        phase_dryrun(dev)
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     launches["kmer_score_dense"] = dense_launches

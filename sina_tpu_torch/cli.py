@@ -2,9 +2,8 @@
 
 The option surface of sina_tpu/cli.py (the reference's CLI contract,
 sina.cpp:379-440), plus --device {cuda,cpu}.  --jax-profile-dir keeps
-the reference's name and writes a torch.profiler trace.  Options whose
-code is not ported yet exit with status 2 and a message naming the JAX
-package; none of them falls back quietly.
+the reference's name and writes a torch.profiler trace; --multihost
+joins a torch.distributed (gloo) process group.
 """
 
 from __future__ import annotations
@@ -17,15 +16,9 @@ from pathlib import Path
 from . import __version__
 from .align import AlignerConfig
 from .famfinder import FamFinderConfig
+from .parallel import multihost
 from .pipeline import Pipeline, PipelineConfig
 from .search import SearchConfig
-
-
-# (test on the parsed arguments, the option as the user wrote it)
-UNPORTED = (
-    # multi-device runs (sina_tpu/parallel) have no counterpart yet
-    (lambda a: a.multihost, "--multihost"),
-)
 
 
 def _profiled(trace_dir: str, device):
@@ -252,14 +245,20 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = p.add_argument_group("Multi-host")
     g.add_argument("--multihost", action="store_true",
-                   help="multi-host runs (not ported: use python -m "
-                   "sina_tpu --multihost)")
+                   help="join a torch.distributed (gloo) process "
+                   "group; each process reads its own --fasta-block "
+                   "shard of the input and writes <out>.part<idx> (the "
+                   "batched psina, rw_fasta.cpp:209-242)")
     g.add_argument("--coordinator", default="",
-                   help="coordinator address host:port (multihost)")
+                   help="coordinator address host:port of process 0 "
+                   "(multihost; default: MASTER_ADDR/MASTER_PORT from "
+                   "the environment, as torchrun sets them)")
     g.add_argument("--num-processes", type=int, default=0,
-                   help="process count (multihost)")
+                   help="process count (multihost; default: WORLD_SIZE "
+                   "from the environment)")
     g.add_argument("--process-id", type=int, default=-1,
-                   help="this process's id (multihost)")
+                   help="this process's id (multihost; default: RANK "
+                   "from the environment)")
 
     g = p.add_argument_group("CSV I/O")
     g.add_argument("--csv-crlf", action="store_true")
@@ -460,6 +459,10 @@ def config_from_args(args) -> PipelineConfig:
         select_step=args.select_step,
         select_skip=args.select_skip,
         select_file=args.select_file,
+        multihost=args.multihost,
+        coordinator=args.coordinator,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
         device=args.device,
     )
 
@@ -482,14 +485,6 @@ def setup_logging(verbose: int, quiet: int, log_file: str = "") -> None:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for unported, flag in UNPORTED:
-        if unported(args):
-            parser.exit(
-                2,
-                f"{flag} is not ported to sina_tpu_torch yet; use the "
-                f"JAX package sina_tpu (python -m sina_tpu {flag.split('/')[-1]} "
-                "...)\n",
-            )
     if args.has_cli_vers is not None:
         # CLI-version handshake for ARB integration (sina.cpp:272-284)
         print(
@@ -570,6 +565,13 @@ def main(argv: list[str] | None = None) -> int:
         dump("famfinder", cfg.famfinder)
         dump("aligner", cfg.aligner)
         dump("search", cfg.search)
+    try:
+        return _run(cfg, args)
+    finally:
+        multihost.shutdown()
+
+
+def _run(cfg: PipelineConfig, args) -> int:
     try:
         pipe = Pipeline(cfg)
     except (ValueError, FileNotFoundError, RuntimeError) as e:

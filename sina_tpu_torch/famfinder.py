@@ -5,7 +5,9 @@ index probing, constraint-driven family selection with escalating
 retry, gap-count filtering and alignment-stats selection.  Scoring and
 top-k run batched on the torch device (ops/kmer_kernel); the policy
 layer is host-side python over small top-k lists, copied from the
-reference without change.  Not ported: the multi-device mesh branch.
+reference without change.  With more than one CUDA device (or a mesh
+given), the index is sharded over a (dp, mp) device mesh as the JAX
+package shards it over its devices (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ from .sequence import Sequence
 from .timing import get_timer
 from .ops.kmer_kernel import kmer_scores, score_topk as _score_topk_device
 from .ops.profile import _bucket_rows
+from .parallel.multihost import process_count
+from .parallel.sharding import (
+    Mesh, ShardedMatrix, make_mesh, shard_index_matrix, sharded_scores, sharded_search,
+)
 
 logger = logging.getLogger("sina.famfinder")
 
@@ -99,7 +105,12 @@ class FamilyResult:
 
 class FamFinder:
     def __init__(self, db: ReferenceDb, cfg: FamFinderConfig | None = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh: Mesh | None = None):
+        """`mesh` shards the index over its devices.  Without one, a
+        finder on CUDA builds one over every visible CUDA device when
+        there are several, as the JAX package does over its devices
+        (sina_tpu/famfinder.py:111-133): under a multi-process run each
+        process's own devices, all of them index shards (dp = 1)."""
         self.db = db
         self.cfg = cfg or FamFinderConfig()
         self.device = torch.device(device)
@@ -107,24 +118,70 @@ class FamFinder:
         self.index = KmerIndex.build(
             db, k=self.cfg.fs_kmer_len, fast=not self.cfg.fs_no_fast
         )
+        if mesh is None and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            mesh = make_mesh([torch.device("cuda", i) for i in range(torch.cuda.device_count())],
+                             dp=1 if process_count() > 1 else None)
+        self.mesh = mesh
         self._P = None
 
     def on_device(self, device: torch.device | str) -> "FamFinder":
         """A finder on `device` that shares this one's database and
         k-mer index (the index build is the expensive part of set-up),
-        and its device matrix when `device` is its own."""
+        and its device matrix when `device` is its own.  A finder on a
+        mesh gets a mesh of the same (dp, mp) over `device`, so that a
+        run there compares like with like."""
         other = copy.copy(self)
         other.device = torch.device(device)
         if other.device != self.device:
             other._P = None
+            if self.mesh is not None:
+                dp, mp = self.mesh.shape["dp"], self.mesh.shape["mp"]
+                other.mesh = make_mesh([other.device] * (dp * mp), dp=dp)
         return other
 
     # -- device scoring ----------------------------------------------
 
-    def _matrix(self) -> torch.Tensor:
+    def _matrix(self) -> torch.Tensor | ShardedMatrix:
         if self._P is None:
-            self._P = device_matrix(self.index, self.device)
+            if self.mesh is None:
+                self._P = device_matrix(self.index, self.device)
+                return self._P
+            mp = self.mesh.shape["mp"]
+            cap = -(-max(self.index.n_seqs, 1) // 1024) * 1024
+            if cap >= 32768:
+                # SILVA scale: per-shard exact-size tiled blocks (the
+                # single-device layout, sharded over the lane axis)
+                P = self.index.dense_packed_tiled(byte_multiple=4096 * mp)
+            else:
+                # the byte axis padded to whole 4-byte words a shard
+                # (the scorer kernel copies 4-byte words; the JAX
+                # package pads to mp).  The ids are the same: each
+                # shard holds a contiguous id range ranked lowest id
+                # first, and padding ranks after every reference
+                P = self.index.dense_packed()
+                Sb = P.shape[1]
+                Sb_pad = -(-Sb // (4 * mp)) * (4 * mp)
+                if Sb_pad != Sb:
+                    P = np.pad(P, ((0, 0), (0, Sb_pad - Sb)))
+            # slice on the host: the whole matrix never sits on one device
+            self._P = shard_index_matrix(self.mesh, P)
         return self._P
+
+    def _pad_dp(self, kmers: np.ndarray) -> np.ndarray:
+        """A row-bucketed batch padded to a multiple of the mesh's dp
+        with the sink row, for the mesh split
+        (sina_tpu/famfinder.py:214-226)."""
+        dp = self.mesh.shape["dp"]
+        B_pad = -(-kmers.shape[0] // dp) * dp
+        if B_pad == kmers.shape[0]:
+            return kmers
+        return np.pad(kmers, ((0, B_pad - kmers.shape[0]), (0, 0)),
+                      constant_values=self._matrix().shape[0] - 1)
+
+    def _sharded_topk(self, kmers: np.ndarray, k: int):
+        """The mesh's scoring + top-k of a row-bucketed batch: (vals,
+        ids), (B_pad, k) int32 tensors, not fetched."""
+        return sharded_search(self.mesh, k)(self._matrix(), self._pad_dp(kmers))
 
     @staticmethod
     def _pad_rows(kmers: np.ndarray, sink: int) -> np.ndarray:
@@ -154,7 +211,10 @@ class FamFinder:
             kmers = self._pad_rows(
                 kmers, self._matrix().shape[0] - 1
             )
-            scores = kmer_scores(self._matrix(), self._upload(kmers))
+            if self.mesh is not None:
+                scores = sharded_scores(self.mesh, self._matrix(), self._pad_dp(kmers))
+            else:
+                scores = kmer_scores(self._matrix(), self._upload(kmers))
             scores = scores.cpu().numpy()
             return scores[:B, : self.index.n_seqs]
 
@@ -176,10 +236,14 @@ class FamFinder:
         with t.section("score+topk"):
             P = self._matrix()
             B = kmers.shape[0]
+            # row-bucket first, then (on a mesh) pad to a dp multiple
             kmers = self._pad_rows(kmers, P.shape[0] - 1)
-            packed = _score_topk_device(P, self._upload(kmers), k)
-            packed = packed.cpu().numpy()
-            vals, ids = packed[:B, :k], packed[:B, k:]
+            if self.mesh is not None:
+                vals, ids = (x.cpu().numpy()[:B] for x in self._sharded_topk(kmers, k))
+            else:
+                packed = _score_topk_device(P, self._upload(kmers), k)
+                packed = packed.cpu().numpy()
+                vals, ids = packed[:B, :k], packed[:B, k:]
             pad = ids >= self.index.n_seqs
             vals = np.where(pad, -1, vals)
             ids = np.where(pad, 0, ids)
@@ -534,6 +598,10 @@ class FamFinder:
             max(4 * cfg.fs_max + 16, 256), self.index.n_seqs
         )
         with t.section("score dispatch"):
+            if self.mesh is not None:
+                # the same handle protocol, so the 3-deep pipeline
+                # overlaps identically on a mesh
+                return (*self._sharded_topk(kmers, k0), len(uniq)), k0, inv
             handle = _score_topk_device(P, self._upload(kmers), k0)
         return handle, k0, inv
 
@@ -551,8 +619,13 @@ class FamFinder:
             packed, k0, inv = handle
             t = get_timer("Kmer Search")
             with t.section("fetch topk"):
-                packed = packed.cpu().numpy()
-                vals, ids = packed[:, :k0], packed[:, k0:]
+                if isinstance(packed, tuple):  # a mesh's (vals, ids, rows)
+                    dv, di, Bu = packed
+                    vals = dv.cpu().numpy()[:Bu]
+                    ids = di.cpu().numpy()[:Bu]
+                else:
+                    packed = packed.cpu().numpy()
+                    vals, ids = packed[:, :k0], packed[:, k0:]
             with t.section("policy"):
                 pad = ids >= self.index.n_seqs
                 vals = np.where(pad, -1, vals)

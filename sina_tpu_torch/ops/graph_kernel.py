@@ -436,7 +436,7 @@ def graph_dp(pos, mask, weight, predbits, flags, qmask, qlen, col_weights,
     if not 0 < M <= 16384:
         raise ValueError(f"graph_dp kernel needs 1 <= M <= 16384 (M={M})")
     aspace = max_insert is not None
-    cfg = graph_dp_plan(M, k_ring, aspace)
+    cfg = graph_dp_plan(M, k_ring, aspace, dev)
     costs = node_costs(pos, weight, col_weights, subst, params)
     table = node_table(costs, mask, predbits, flags, max_insert)
     smat = (subst.reshape(B, 16).contiguous() if subst is not None
@@ -447,27 +447,28 @@ def graph_dp(pos, mask, weight, predbits, flags, qmask, qlen, col_weights,
     # plus each thread's copy of V at the lane left of its own
     ring = (None if cfg["shared_ring"] else
             torch.empty((B, cfg["scratch"]), dtype=torch.float32, device=dev))
-    err = kernels.lib().sina_graph_dp(
+    kernels.launch(
+        "graph_dp", kernels.lib().sina_graph_dp,
         table.data_ptr(), qmask.data_ptr(), qlen.data_ptr(), smat.data_ptr(),
         bp.data_ptr(), best.data_ptr(), None if ring is None else ring.data_ptr(),
         B, N, M, k_ring, int(aspace), int(subst is not None),
-        params.match, params.mismatch, kernels.stream_ptr(dev),
+        params.match, params.mismatch, device=dev,
     )
-    kernels.check(err, "graph_dp")
-    kernels.launches["graph_dp"] += 1
     if ring is not None:
         kernels.launches["graph_dp_global_ring"] += 1
     return (bp, *_decode_best(best, qlen))
 
 
-def graph_dp_plan(M: int, k_ring: int, aspace: bool) -> dict:
-    """The graph DP kernel's launch plan (needs the card): lanes a
+def graph_dp_plan(M: int, k_ring: int, aspace: bool,
+                  device: torch.device | None = None) -> dict:
+    """The graph DP kernel's launch plan on `device` (needs the card;
+    by default the current device): lanes a
     thread, threads, whether the ring of k_ring node rows lives in
     shared memory (else the global-ring route), dynamic and static
     shared memory bytes a block, registers a thread, floats of global
     ring scratch a query, and the deepest ring shared memory holds."""
     lib = kernels.lib()
-    out = kernels.plan(lib.sina_graph_dp_plan, M, k_ring, int(aspace), n=8)
+    out = kernels.plan(lib.sina_graph_dp_plan, M, k_ring, int(aspace), n=8, device=device)
     keys = ("lanes", "threads", "shared_ring", "dyn_smem", "static_smem",
             "regs", "scratch", "max_shared_ring")
     return dict(zip(keys, out))
@@ -563,12 +564,11 @@ def graph_traceback(bp, best_j, best_i, flags):
         raise ValueError(f"flags has shape {tuple(flags.shape)}, expected {(B, N)}")
     emit = torch.empty((B, M), dtype=torch.int32, device=dev)
     done = torch.empty(B, dtype=torch.int32, device=dev)
-    err = kernels.lib().sina_graph_traceback(
+    kernels.launch(
+        "graph_traceback", kernels.lib().sina_graph_traceback,
         bp.data_ptr(), best_j.data_ptr(), best_i.data_ptr(), flags.data_ptr(),
-        emit.data_ptr(), done.data_ptr(), B, N, M, kernels.stream_ptr(dev),
+        emit.data_ptr(), done.data_ptr(), B, N, M, device=dev,
     )
-    kernels.check(err, "graph_traceback")
-    kernels.launches["graph_traceback"] += 1
     return emit, done
 
 
@@ -579,7 +579,7 @@ def graph_traceback_plan(bp: torch.Tensor) -> dict:
     aligned, else 4 or 2), dynamic and static shared memory bytes a
     block, registers a thread."""
     out = kernels.plan(kernels.lib().sina_graph_traceback_plan, bp.data_ptr(),
-                       bp.shape[-1], n=7)
+                       bp.shape[-1], n=7, device=bp.device)
     keys = ("threads", "window_nodes", "window_rows", "copy_bytes", "dyn_smem",
             "static_smem", "regs")
     return dict(zip(keys, out))

@@ -7,9 +7,13 @@ directory: one nvcc process for each source, all started together
 (the build log gives each one's seconds), then one link.  The file name carries a hash of the sources and flags,
 so an edited source rebuilds.  The library is loaded with ctypes.
 
-Every wrapper that launches a kernel adds one to its entry of
-``launches`` right after the launch, and nowhere else, so a run can
-show that its main path went through the kernels.
+Every wrapper launches its kernel through ``launch``, which makes the
+operands' device current for the call (a ``<<<...>>>`` launch, and the
+per-device shared-memory opt-ins of csrc/, act on the host thread's
+current device, not on the stream's), passes that device's current
+stream, raises on a CUDA error and adds one to the kernel's entry of
+``launches``: nowhere else, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -163,16 +167,25 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel failed: CUDA error {err} ({msg})")
 
 
-def plan(fn, *args: int, n: int) -> list[int]:
-    """Call a C launch-plan function fn(*args, long long out[n]) and
-    return out; raises on a CUDA error or an unsupported shape."""
+def plan(fn, *args: int, n: int, device: torch.device | None = None) -> list[int]:
+    """Call a C launch-plan function fn(*args, long long out[n]) with
+    `device` current (by default the current device) and return out;
+    raises on a CUDA error or an unsupported shape."""
     out = (ctypes.c_longlong * n)()
-    check(fn(*args, out), fn.__name__)
+    with torch.cuda.device(device):
+        check(fn(*args, out), fn.__name__)
     return list(out)
 
 
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def launch(name: str, fn, *args, device: torch.device) -> None:
+    """Launch a kernel through its C entry point fn(*args, stream) on
+    `device`, the device of its operands: with that device current and
+    its current stream; raises on a CUDA error, then counts the launch
+    as `name` in ``launches``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)
+    launches[name] += 1
 
 
 def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -105,13 +105,12 @@ def kmer_scores(P: torch.Tensor, kmers: torch.Tensor, gmax: bool = False):
     gm = torch.empty((B, Sb), dtype=torch.int32, device=dev) if gmax else None
     # the pre-pass's (row, count) runs: rows (B, L), counts (B, L), runs (B,)
     runs = torch.empty(2 * B * L + B, dtype=torch.int32, device=dev)
-    err = kernels.lib().sina_kmer_score(
+    kernels.launch(
+        "kmer_score", kernels.lib().sina_kmer_score,
         P.data_ptr(), kmers.data_ptr(), out.data_ptr(),
         gm.data_ptr() if gmax else None, runs.data_ptr(), Sb, R, B, L,
-        kernels.stream_ptr(dev),
+        device=dev,
     )
-    kernels.check(err, "kmer_score")
-    kernels.launches["kmer_score"] += 1
     return (out, gm) if gmax else out
 
 
@@ -124,7 +123,8 @@ def kmer_score_plan(P: torch.Tensor) -> dict:
     pre-pass's threads and ids sorted together, and the bytes the ring's
     copies can keep in flight on an SM."""
     P = _flat(P)
-    out = kernels.plan(kernels.lib().sina_kmer_score_plan, P.shape[1], P.data_ptr(), n=13)
+    out = kernels.plan(kernels.lib().sina_kmer_score_plan, P.shape[1], P.data_ptr(), n=13,
+                       device=P.device)
     keys = ("load_bytes", "threads", "tile_chunks", "tiles", "regs", "static_smem",
             "dyn_smem", "spill_bytes", "blocks_per_sm", "group", "ring", "sort_threads",
             "sort_chunk")
@@ -148,12 +148,10 @@ def _kmer_scores_dense(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
     if S % 16 or P.data_ptr() % 16:
         raise ValueError("P rows must be a multiple of 16 bytes, 16-byte aligned")
     out = torch.empty((B, S), dtype=torch.int32, device=dev)
-    err = kernels.lib().sina_kmer_score_dense(
-        P.data_ptr(), kmers.data_ptr(), out.data_ptr(), S, R, B, L,
-        kernels.stream_ptr(dev),
+    kernels.launch(
+        "kmer_score_dense", kernels.lib().sina_kmer_score_dense,
+        P.data_ptr(), kmers.data_ptr(), out.data_ptr(), S, R, B, L, device=dev,
     )
-    kernels.check(err, "kmer_score_dense")
-    kernels.launches["kmer_score_dense"] += 1
     return out
 
 

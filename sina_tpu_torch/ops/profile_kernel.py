@@ -224,17 +224,16 @@ def profile_dp(fgq, qmask, lens, params: DpParams, fam_idx=None, budget=None):
     best_i = torch.empty(B, dtype=torch.int32, device=dev)
     raw = torch.empty(B, dtype=torch.float32, device=dev)
     s = _scalars(params)
-    err = kernels.lib().sina_profile_dp(
+    kernels.launch(
+        "profile_dp" if budget is None else "profile_dp_forbid",
+        kernels.lib().sina_profile_dp,
         fgq.data_ptr(), fam_idx.data_ptr() if fam_idx is not None else None,
         qmask.data_ptr(), lens.data_ptr(),
         budget.data_ptr() if budget is not None else None, bp.data_ptr(),
         best_c.data_ptr(), best_i.data_ptr(), raw.data_ptr(), B, C, M,
         s["go"], s["ge"], s["m_minus_mm"], s["mm"], s["inv255"],
-        s["inv_gap_scale"], kernels.stream_ptr(dev),
+        s["inv_gap_scale"], device=dev,
     )
-    name = "profile_dp" if budget is None else "profile_dp_forbid"
-    kernels.check(err, name)
-    kernels.launches[name] += 1
     return bp, best_c, best_i, raw
 
 
@@ -324,12 +323,11 @@ def chain_traceback(bp, best_c, best_i) -> torch.Tensor:
     kernels.require_cuda("best_i", best_i, torch.int32, dev, 1)
     C, B, M = bp.shape
     emit = torch.empty((B, M), dtype=torch.int32, device=dev)
-    err = kernels.lib().sina_chain_traceback(
+    kernels.launch(
+        "chain_traceback", kernels.lib().sina_chain_traceback,
         bp.data_ptr(), best_c.data_ptr(), best_i.data_ptr(), emit.data_ptr(),
-        B, C, M, kernels.stream_ptr(dev),
+        B, C, M, device=dev,
     )
-    kernels.check(err, "chain_traceback")
-    kernels.launches["chain_traceback"] += 1
     return emit
 
 
@@ -340,7 +338,7 @@ def chain_traceback_plan(bp: torch.Tensor) -> dict:
     are 16-byte aligned, else 4 or 1), dynamic and static shared memory
     bytes a block, registers a thread."""
     out = kernels.plan(kernels.lib().sina_chain_traceback_plan, bp.data_ptr(),
-                       bp.shape[-1], n=7)
+                       bp.shape[-1], n=7, device=bp.device)
     keys = ("threads", "window_cols", "window_rows", "copy_bytes", "dyn_smem",
             "static_smem", "regs")
     return dict(zip(keys, out))

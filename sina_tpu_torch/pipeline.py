@@ -7,7 +7,9 @@ wide, in a 3-deep software pipeline over batches: famfinder scoring
 for batch N+1 is queued while batch N's DP runs and the host finishes
 batch N-1 (with the turn check, famfinder scores eagerly instead: its
 orientations are scored, then the reoriented queries rescored).  Order
-is preserved by construction.  Not ported: multi-host runs.
+is preserved by construction.  A multi-host run (``multihost``) joins a
+torch.distributed process group; each process reads its own
+--fasta-block shard of the input and writes <out>.part<idx>.
 """
 
 from __future__ import annotations
@@ -70,6 +72,12 @@ class PipelineConfig:
     select_step: int = 1
     select_skip: int = 0
     select_file: str = ""
+    # multi-host (torch.distributed): each process reads its own
+    # --fasta-block shard and writes <out>.part<idx>
+    multihost: bool = False
+    coordinator: str = ""
+    num_processes: int = 0
+    process_id: int = -1
 
 
 class Pipeline:
@@ -79,6 +87,35 @@ class Pipeline:
         self.db: ReferenceDb | None = None
         self.finder: FamFinder | None = None
         self.searcher: SearchFilter | None = None
+
+        if cfg.multihost:
+            from .parallel import multihost
+
+            multihost.initialize(
+                coordinator=cfg.coordinator or None,
+                num_processes=cfg.num_processes or None,
+                process_id=(
+                    cfg.process_id if cfg.process_id >= 0 else None
+                ),
+            )
+            if (
+                multihost.process_count() > 1
+                and cfg.fasta_block == 0
+                and cfg.in_path not in ("-",)
+                and Path(cfg.in_path).is_file()
+            ):
+                shard = multihost.host_input_shard(cfg.in_path)
+                cfg.fasta_block = shard["fasta_block"]
+                cfg.fasta_idx = shard["fasta_idx"]
+            if multihost.process_count() > 1:
+                idx = multihost.process_index()
+                cfg.outputs = [
+                    (
+                        kind,
+                        path if path == "-" else f"{path}.part{idx}",
+                    )
+                    for kind, path in cfg.outputs
+                ]
 
         if not cfg.prealigned:
             if not cfg.db:

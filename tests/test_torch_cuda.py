@@ -624,3 +624,60 @@ def test_traceback_plane_at_a_narrower_alignment(cuda, graph):
         t = _on(cuda, *testing.chain_traceback_case("random", 23, 2, 700, 640), offset=4)
         assert pk.chain_traceback_plan(t[0])["copy_bytes"] == 4
         _equal([pk.chain_traceback(*t)], [pk.chain_traceback_plain(*t)])
+
+
+def _mesh_matrix(layout: str, rng):
+    """A random incidence matrix of 300 rows (the last the sink) in one
+    of the sharded layouts: tiled (300, 32, 512), flat packed
+    (300, 16384) (32,768 or more references a shard: the grouped
+    top-k), or dense int8 (300, 2048) {0, 1}."""
+    shape = {"tiled": (300, 32, 512), "flat": (300, 16384), "dense": (300, 2048)}[layout]
+    P = rng.integers(0, 2 if layout == "dense" else 256, shape)
+    P = P.astype(np.int8 if layout == "dense" else np.uint8)
+    P[-1] = 0
+    return P
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+@pytest.mark.parametrize("layout", ["tiled", "flat", "dense"])
+def test_sharded_search_on_a_card_mesh_equals_the_cpu_mesh(cuda, layout, dp):
+    """A mesh of the card named 4 times against the same (dp, mp) on the
+    CPU (the plain versions): the same values and ids, one scorer launch
+    a shard, and the raw scores in the whole matrix's order."""
+    from sina_tpu_torch.parallel.sharding import (
+        make_mesh, shard_index_matrix, sharded_scores, sharded_search,
+    )
+
+    rng = np.random.default_rng(dp * 10 + len(layout))
+    P = _mesh_matrix(layout, rng)
+    kmers = rng.integers(0, 300, (8, 64)).astype(np.int32)
+    kmers[:, ::5] = 299
+    gmesh, cmesh = make_mesh([cuda] * 4, dp=dp), make_mesh([torch.device("cpu")] * 4, dp=dp)
+    Pg, Pc = shard_index_matrix(gmesh, P), shard_index_matrix(cmesh, P)
+    name = "kmer_score_dense" if layout == "dense" else "kmer_score"
+    for k in (16, 300):
+        before = kernels.launches[name]
+        gv, gi = sharded_search(gmesh, k)(Pg, kmers)
+        assert kernels.launches[name] == before + 4
+        assert gv.device == cuda
+        _equal([gv, gi], sharded_search(cmesh, k)(Pc, kmers))
+    _equal([sharded_scores(gmesh, Pg, kmers)], [kk.kmer_scores(torch.from_numpy(P),
+                                                             torch.from_numpy(kmers))])
+
+
+def test_famfinder_on_a_card_mesh_equals_its_cpu_copy(cuda):
+    """FamFinder on a (1, 4) mesh of the card: on_device("cpu") gives a
+    (1, 4) mesh of the CPU, and both return the same candidates."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
+    from sina_tpu_torch.parallel.sharding import make_mesh
+
+    db = testing.make_reference(n_seqs=150, n_core=300, width=500, seed=21)
+    qs = testing.make_queries(db, n=12, seed=4, branch_len=0.6)
+    gf = FamFinder(db, FamFinderConfig(fs_min=10, fs_max=10, fs_full_len=300, fs_req_gaps=1),
+                   cuda, mesh=make_mesh([cuda] * 4, dp=1))
+    cf = gf.on_device("cpu")
+    assert cf.mesh.shape == gf.mesh.shape and cf.mesh.devices[0][0] == torch.device("cpu")
+    masks = [q.masks for q in qs]
+    for a, b in zip(gf.score_topk(masks, 64), cf.score_topk(masks, 64)):
+        np.testing.assert_array_equal(a, b)

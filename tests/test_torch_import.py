@@ -1,6 +1,8 @@
-"""The port imports neither jax nor the JAX package, its CLI refuses
-what is not ported (--multihost) and runs the options ported since."""
+"""The port imports neither jax nor the JAX package, its CLI runs the
+options ported since its first slice, and every kernel launch goes
+through the one helper that makes the operands' device current."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +45,10 @@ PORT_MODULES = [
     "sina_tpu_torch.ops.profile",
     "sina_tpu_torch.ops.profile_kernel",
     "sina_tpu_torch.debug_dump",
+    "sina_tpu_torch.parallel",
+    "sina_tpu_torch.parallel.sharding",
+    "sina_tpu_torch.parallel.multihost",
+    "sina_tpu_torch.parallel.dryrun",
 ]
 
 # installs a sys.meta_path hook that makes every import of jax, jaxlib
@@ -152,21 +158,31 @@ def test_cli_turn_and_search_without_jax(tmp_path):
     assert res.stdout.strip().splitlines()[-1] == "ok"
 
 
-@pytest.mark.parametrize(
-    "argv",
-    [
-        pytest.param(["--multihost"], id="argv7"),
-    ],
-)
-def test_unported_options_exit_2(argv, capsys):
-    from sina_tpu_torch import cli
-
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["-i", "q.fasta", "-r", "ref.fasta", *argv])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported to sina_tpu_torch" in err
-    assert "JAX package sina_tpu" in err
+def test_every_kernel_launch_goes_through_the_device_helper():
+    """Every C entry point of the kernel library that launches a kernel
+    is called by a wrapper through kernels.launch (which makes the
+    operands' device current and counts the launch), every launch-plan
+    query through kernels.plan, and nothing outside kernels.py reads a
+    stream or counts a kernel's launch itself."""
+    src = (REPO / "sina_tpu_torch" / "ops" / "kernels.py").read_text()
+    entries = set(re.findall(r"so\.(sina_\w+)\.argtypes", src)) - {"sina_cuda_error_string"}
+    launched, planned = set(), set()
+    for path in (REPO / "sina_tpu_torch").rglob("*.py"):
+        if path.name == "kernels.py":
+            continue
+        text = path.read_text()
+        assert "cuda_stream" not in text and "stream_ptr" not in text, path
+        calls = set(re.findall(r"\.(sina_\w+)\b", text)) & entries
+        launched |= set(re.findall(
+            r'kernels\.launch\(\s*(?:"\w+"|\w+|"\w+" if [^,]+ else "\w+"),\s*'
+            r"kernels\.lib\(\)\.(sina_\w+),", text))
+        planned |= set(re.findall(
+            r"kernels\.plan\(\s*(?:kernels\.lib\(\)|lib)\.(sina_\w+_plan),", text))
+        assert calls <= launched | planned, (path, calls - launched - planned)
+        counted = set(re.findall(r'launches\["(\w+)"\]\s*\+=', text))
+        assert counted <= {"graph_dense_route", "graph_dp_global_ring"}, (path, counted)
+    assert launched == {e for e in entries if not e.endswith("_plan")}
+    assert planned == {e for e in entries if e.endswith("_plan")}
 
 
 @pytest.fixture(scope="module")
