@@ -18,7 +18,9 @@ Phases, each printing a line:
      shapes with a budget plane of 0, 1, small values, values above M
      and 10**6, eight rows of it real families and queries of phase
      5's reference (made before this phase), exact with the chain
-     traceback's emit on its plane, timed beside the shift mode;
+     traceback's emit on its plane, timed beside the shift mode and
+     with one budget in every cell (below 1, 1, 4, 5, 33, 128, 129,
+     M - 1 and M; each exact, one budget a row), with its registers;
      the packed scorer, the two DPs and the two tracebacks with their
      launch plans
      (threads, registers, shared memory a block) and their times from
@@ -74,7 +76,8 @@ Phases, each printing a line:
  12. the profile engine with --insertion forbid at the same scale: 384
      full-length queries in three batches of 128 (the first warms up)
      with AlignerConfig(insertion="forbid"), with its kernels' launch
-     counts and the device's busy share;
+     counts, the device's busy share and the share of the real columns
+     in each budget class, from the budget planes the aligner built;
  13. the first 16 of those again with device="cpu": identical records;
  14. the sharded search (sina_tpu_torch/parallel) at scale: phase 5's
      index in the tiled layout (131,072 padded references, 4.3 GB) on
@@ -197,9 +200,14 @@ GRAPH_INSTS_PER_END_CELL = (4, 1)
 BEFORE_MS = {"kmer_score": 0.391, "profile_dp": 2.046, "graph_dp simple": 8.926,
              "graph_dp weighted": 8.883, "graph_dp aspace": 11.120,
              "graph_dp matrix": 10.980, "chain_traceback": 0.814,
-             "graph_traceback": 0.640}
+             "graph_traceback": 0.640, "profile_dp_forbid": 2.561}
 # the launches each DP time is the mean of
 DP_REPS = 10
+# the forbid mode's budgets timed alone (the same in every cell): below 1,
+# then the edges of the lane geometry at 4 lanes a thread (K, K + 1, one
+# warp's 32 K lanes and one more), a typical gap of a real family, M - 1
+# and M
+FORBID_UNIFORM_R = (0, 1, 4, 5, 33, 128, 129, M_MAIN - 1, M_MAIN)
 # the launches each traceback time is the mean of, and the bytes written
 # before a cold launch, which leave none of its data in the 50 MB L2
 TB_REPS = 5
@@ -586,25 +594,42 @@ def phase_forbid_kernel(dev, rng, db, fgq, qmask, lens, shift_ms: float) -> dict
     end.synchronize()
     plain_ms = start.elapsed_time(end)
     # the kernel's time by budget, the same budget in every cell: below 1
-    # (one barrier a column), 1, a typical gap of a real family, M
+    # (no window), then the lane geometry's edges at 4 lanes a thread (K,
+    # K + 1, one warp's 32 K lanes and one more), a typical gap of a real
+    # family, M - 1 and M
     uniform = {}
-    for r in (0, 1, 33, M_MAIN):
+    for r in FORBID_UNIFORM_R:
         u = torch.full_like(bud, r)
         uniform[r] = round(time_ms(lambda: pk.profile_dp(fg, qm, ln, params, budget=u),
                                    DP_REPS), 3)
+    # each of those budgets exact: row b takes the b-th of them (mod their
+    # count) in every column, one plain run for all (rows are independent)
+    rows_r = torch.tensor(FORBID_UNIFORM_R, dtype=torch.int32, device=dev)
+    u = rows_r[torch.arange(B_MAIN, device=dev) % len(FORBID_UNIFORM_R)][:, None].expand_as(bud)
+    u = u.contiguous()
+    for n, a, b in zip(("bp", "best_c", "best_i", "raw"),
+                       pk.profile_dp(fg, qm, ln, params, budget=u),
+                       pk.profile_dp_plain(fg, qm, ln, params, budget=u)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"profile_dp_forbid {n} disagrees with its plain version "
+                                 f"at one budget a row ({int((a != b).sum())} cells)")
     insts, cells = forbid_insts(lens, budget, M_MAIN)
     b = bound(fgq.nbytes + qmask.nbytes + lens.nbytes + budget.nbytes
               + B_MAIN * C_MAIN * M_MAIN + 12 * B_MAIN, insts=insts)
+    plan = pk.profile_dp_plan(M_MAIN, forbid=True)
     say(f"phase 3 profile_dp_forbid: B={B_MAIN} C={C_MAIN} M={M_MAIN} (rows 0-7 real "
         f"families and queries, {ins} insertion cells there; fewest bases emitted in a "
-        f"real row {real_aligned}) bp/best_c/best_i/raw and emit exact; kernel {ms:.3f} ms, "
+        f"real row {real_aligned}) bp/best_c/best_i/raw and emit exact; kernel {ms:.3f} ms "
+        f"(before the redesign, other run: {BEFORE_MS['profile_dp_forbid']:.3f} ms, "
+        f"{ms / BEFORE_MS['profile_dp_forbid']:.3f}x), "
         f"shift mode on the same profiles {shift_same:.3f} ms ({ms / shift_same:.3f}x; "
         f"phase 3's shift profiles {shift_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
         f"{b['bound_ms']:.3f} ms ({b['bound_by']}; {cells} cells, {insts[0]} "
-        f"instructions, {insts[1]} integer); launch plan "
-        f"{pk.profile_dp_plan(M_MAIN, forbid=True)}; kernel ms with one budget R in "
-        f"every cell {uniform}; budgets >= 1 in {int((budget >= 1).sum())} of "
-        f"{budget.size} cells")
+        f"instructions, {insts[1]} integer); launch plan {plan}: {plan['regs']} "
+        f"registers a thread (shift mode {pk.profile_dp_plan(M_MAIN)['regs']}); kernel ms "
+        f"with one budget R in every cell {uniform} (each exact, one budget a row); "
+        f"budgets >= 1 in "
+        f"{int((budget >= 1).sum())} of {budget.size} cells")
     return {"max_abs_err": float((got[3] - ref[3]).abs().max()), "ms": ms,
             "plain_ms": plain_ms, **b, "library_ms": None}
 
@@ -1396,8 +1421,11 @@ def phase_forbid_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
         f"bases preserved; warmup batch {t_warm:.2f}s; steady {n_steady} seqs in "
         f"{t_steady:.3f}s = {n_steady / t_steady:.2f} seq/s on {gpu_line()}; "
         f"launches {launches}")
-    busy, wall, per = device_busy(
-        lambda: _run_batches(finder, batches[1:], acfg, dev))
+    with recorded_budgets() as planes:
+        busy, wall, per = device_busy(
+            lambda: _run_batches(finder, batches[1:], acfg, dev))
+    say(f"phase 12 budgets of the real columns (second pass, {len(planes)} buckets): "
+        f"{budget_classes(planes)}")
     if busy > 0:
         say(f"phase 12 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
             f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
@@ -1407,6 +1435,49 @@ def phase_forbid_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
         say("phase 12 device busy: not measured (the profiler recorded "
             "no device activity)")
     return launches, aligned[:16], pristine
+
+
+@contextlib.contextmanager
+def recorded_budgets():
+    """Records the budget plane, real column counts and M of every
+    bucket the profile DP dispatch is given while the block runs."""
+    from sina_tpu_torch.ops import profile as prof
+
+    planes = []
+    dispatch = prof.profile_dp_dispatch
+
+    def recording(fgq, qmask, qlen, c_real, *args, budget=None, **kw):
+        if budget is not None:
+            planes.append((np.array(budget), np.array(c_real), qmask.shape[1]))
+        return dispatch(fgq, qmask, qlen, c_real, *args, budget=budget, **kw)
+
+    prof.profile_dp_dispatch = recording
+    try:
+        yield planes
+    finally:
+        prof.profile_dp_dispatch = dispatch
+
+
+def budget_classes(planes) -> str:
+    """The share of the real columns (j < c_real of each query row) in
+    each budget class: below 1 (no window), 1-4, 5-128 (with 1-4 the
+    windows of one warp's lanes at 4 lanes a thread), 129 to M-1, M or
+    more; with the median, the 90th percentile and the maximum."""
+    vals, wide = [], 0
+    for budget, c_real, M in planes:
+        v = budget[np.arange(budget.shape[1])[None, :] < c_real[:, None]]
+        vals.append(v)
+        wide += int((v >= M).sum())
+    v = np.concatenate(vals) if vals else np.zeros(0, np.int32)
+    n = max(len(v), 1)
+    shares = {"below 1": (v < 1).sum(), "1-4": ((v >= 1) & (v <= 4)).sum(),
+              "5-128": ((v >= 5) & (v <= 128)).sum(), "129 to M-1": (v >= 129).sum() - wide,
+              "M or more": wide}
+    text = ", ".join(f"{k} {100 * int(c) / n:.1f}%" for k, c in shares.items())
+    real = v[v >= 1]
+    pct = (f"; of those >= 1: median {np.median(real):.0f}, 90th percentile "
+           f"{np.percentile(real, 90):.0f}, max {real.max()}" if len(real) else "")
+    return f"{len(v)} real columns: {text}{pct}"
 
 
 def phase_dense_path(dev, db) -> int:

@@ -49,11 +49,16 @@
 // is the van Herk / Gil-Werman form: the lanes fall into segments of R
 // starting at multiples of R, a segmented forward min-scan gives P (from the
 // segment's start) and a segmented backward one S (to its end), and
-// min(cand[x-R+1 .. x]) = min(S[x-R+1], P[x]). Both scans run in the thread,
-// then across the warp (shuffles that skip a neighbour in another segment,
-// known from the lane numbers) and the block, so a column costs two
-// barriers whatever R is; S goes through a shared-memory row, read at
-// x-R+1. Minima do not round, so the result is exact.
+// min(cand[x-R+1 .. x]) = min(S[x-R+1], P[x]). Every lane that term reads
+// lies at or left of x (the segment of y = x-R+1 ends at or before x), so a
+// column costs one barrier at any R: before it, the scans run in the thread
+// and across the warp (shuffles that skip a neighbour in another segment,
+// known from the lane numbers), each thread writes its warp-local S to a
+// shared row and each warp its edge values to slots; after it, each reader
+// adds the carries from the warps left of the lanes it reads. For R <= 32 K
+// (one warp's lanes: nearly every real column) those are the previous warp's
+// slots and the own warp's first S; wider windows scan the slots across the
+// warps. Minima do not round, so the result is exact.
 //
 // All f32 arithmetic keeps the reference's operation order through explicit
 // round-to-nearest intrinsics (the library is also built with --fmad=false),
@@ -89,23 +94,30 @@ struct DpScalars {
 
 // one staged column: the substitution cost for each query IUPAC mask, the
 // occupancy-scaled deletion open/extend costs and (forbid mode) the row's
-// insertion budget
+// insertion budget with the divisor of its window (stage_rdiv)
 struct Column {
   float s[16];
   float dgo, dge;
   int budget;
-  float pad;
+  uint32_t rdiv;
 };
 
-// forbid mode's block exchange, in dynamic shared memory behind the S row:
-// each warp's forward and backward scan results at its edge lanes and the U
-// and P values of its last lanes, double-buffered by column parity
+// forbid mode's block exchange, in dynamic shared memory behind the two S
+// rows, double-buffered by column parity: each warp's warp-local P at its
+// last lane (fwd) and the one before (plast), its warp-local S at its first
+// lane (bwd) and the U of its last lane
 struct ForbidSlots {
   float fwd[2][dp::kMaxWarps];
   float bwd[2][dp::kMaxWarps];
   float ulast[2][dp::kMaxWarps];
-  float plast[2][dp::kMaxWarps][2];
+  float plast[2][dp::kMaxWarps];
 };
+
+// forbid mode's S rows: each behind a guard of BIG for the window starts
+// left of lane 0 (down to -1 - 32 K where R <= 32 K; wider windows clamp to
+// -1), filled once
+__host__ __device__ constexpr int guard_floats(int K) { return 32 * K + 4; }
+__host__ __device__ constexpr int srow_floats(int lanes, int K) { return guard_floats(K) + lanes; }
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -152,44 +164,121 @@ __device__ __forceinline__ void stage_columns(Column* dst, const uint8_t* prof,
   }
 }
 
+// forbid mode: each staged column's window divisor, from the row's budgets:
+// rdiv = ceil(2^32 / R) for R = clip(budget, 1, M) >= 2 (0 for R = 1), so
+// that n / R = __umulhi(n, rdiv) exactly for 0 <= n < 2^16 (the error
+// n * (rdiv - 2^32 / R) / 2^32 < 2^-16 stays under 1/R >= 2^-14). One
+// 64-bit division a column, spread over the block with the staging.
+__device__ __forceinline__ void stage_rdiv(Column* dst, const int32_t* bud, int chunk, int C,
+                                           int M, int t, int nthreads) {
+  for (int c = t; c < kChunk; c += nthreads) {
+    const int j = chunk * kChunk + c;
+    if (j >= C) break;
+    const unsigned long long R = (unsigned long long)min(max(bud[j], 1), M);
+    dst[c].rdiv = R > 1 ? (uint32_t)((0xFFFFFFFFull + R) / R) : 0u;
+  }
+}
+
+// forbid mode's carries from the warps for windows wider than a warp's
+// lanes (R > 32 K; under 2% of real columns), out of the column loop's
+// code (inlined, it slowed the narrower windows' columns on the card:
+// forbid_variants.py, inline_wide): lane l of each warp stands for warp l, and Fw[l] (P at warp l's
+// last lane) and Bw[l] (S at its first lane) come from segmented scans
+// over the warps' slots, as the lanes were scanned over the threads.
+// Returns cw = Fw[warp-1], pw2 = Fw[warp-2] (where lane wlane0-2's segment
+// starts before the previous warp: cross2), bA = Bw[wlo+1], bB = Bw[wlo+2].
+struct WideCarries {
+  float cw, pw2, bA, bB;
+};
+template <int K>
+__device__ __noinline__ WideCarries wide_carries(const ForbidSlots& fs, int par, int R,
+                                                 uint32_t rdiv, int warp, int wl, int nwarps,
+                                                 int wlo, bool cross2) {
+  constexpr int W = 32 * K;
+  const float inf = CUDART_INF_F;
+  const bool live = wl < nwarps;
+  float F = live ? fs.fwd[par][wl] : inf;
+  float Bv = live ? fs.bwd[par][wl] : inf;
+  const int fl = wl * W, ll = fl + W - 1;
+  auto divR = [&](int n) { return R == 1 ? n : (int)__umulhi((unsigned)n, rdiv); };
+  const int sl = divR(ll) * R;          // start of the segment of warp wl's last lane
+  const int el = divR(fl) * R + R - 1;  // end of the segment of its first lane
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float fo = __shfl_up_sync(dp::kFull, F, off);
+    const float bo = __shfl_down_sync(dp::kFull, Bv, off);
+    if (ll - off * W >= sl) F = fminf(F, fo);
+    if (fl + off * W <= el) Bv = fminf(Bv, bo);
+  }
+  const float f1 = __shfl_sync(dp::kFull, F, max(warp - 1, 0));
+  const float f2 = __shfl_sync(dp::kFull, F, max(warp - 2, 0));
+  WideCarries c;
+  c.cw = warp > 0 ? f1 : inf;
+  c.pw2 = cross2 ? f2 : inf;
+  c.bA = __shfl_sync(dp::kFull, Bv, min(wlo + 1, 31));
+  c.bB = __shfl_sync(dp::kFull, Bv, min(wlo + 2, 31));
+  return c;
+}
+
 // Forbid mode's insertion start at each lane of the thread: prefix[k] for
 // lane lane0+k, and lane lane0-1's U (uprev0) and I (iprev0), for a column
 // whose budget is `budget` (block-uniform). Every thread of the block calls
-// it; `stage` runs right after the first barrier (the next chunk's columns).
+// it, and it passes the block barrier once; `stage` runs right after it
+// (the next chunk's columns). s_S is the column's S row at lane 0, behind a
+// guard of 32 K + 4 floats of BIG (one of two rows, by column parity, as
+// are the slots: a thread writes column j+2's row and slots only after
+// barrier j+1, which no thread passes before it has read column j's).
 //
 // The segments are [s*R, s*R + R): a thread knows from its lane numbers
 // alone whether another thread's lanes share a segment with its own, so the
 // segmented scans across the warp are plain min-scans whose steps skip a
-// neighbour in another segment, and across warps one reduce over the warps
-// whose edge segment is the warp's own.
+// neighbour in another segment. Lane x's window minimum is min(P[x], S[y])
+// with y = x-R+1 and both global; S[y] spans y to the end e of y's
+// segment, e <= x. Before the barrier each thread makes P and S warp-local
+// and writes S to the row. After it, P[x] takes the carry cw (P at lane
+// wlane0-1) where x's segment started before the own warp, i.e. x < pe, and
+// S[y] the carry from the warps after y's up to e. For R <= 32 K, cw is the
+// previous warp's fwd slot and the only S carry is the own warp's
+// first-lane S, where y's segment reaches into the own warp: sw <= y <
+// wlane0, sw the start of the segment of the warp's first lane. Wider
+// windows take both from wide_carries. Window starts left of lane 0 read
+// the guard's BIG, as the reference pads them.
 template <int K, typename Stage>
 __device__ __forceinline__ void forbid_prefix(const float (&cand)[K], float ulast, int budget,
-                                              int M, int lane0, int t, int warp, int wl,
-                                              int nwarps, int par, float* s_S, ForbidSlots& fs,
-                                              float (&prefix)[K], float& uprev0, float& iprev0,
-                                              float ge_lm1, Stage stage) {
+                                              uint32_t rdiv, int M, int lane0, int t, int warp,
+                                              int wl, int nwarps, int par, float* s_S,
+                                              ForbidSlots& fs, float (&prefix)[K],
+                                              float& uprev0, float& iprev0, float ge_lm1,
+                                              Stage stage) {
+  constexpr int W = 32 * K;  // lanes a warp
+  constexpr int lgW = K == 4 ? 7 : K == 8 ? 8 : 9;
   const float inf = CUDART_INF_F;
-  const bool bounded = budget >= 1;
+  const bool bounded = budget >= 1;  // block-uniform: no divergence below
   const int R = bounded ? min(budget, M) : 1;
+  // n / R for 0 <= n < 2^16 (stage_rdiv)
+  auto divR = [&](int n) { return R == 1 ? n : (int)__umulhi((unsigned)n, rdiv); };
   const int wlane0 = lane0 - wl * K;  // the warp's first lane
-  const int wlast = wlane0 + 32 * K - 1;  // and its last
-  bool head[K];  // lane lane0+k starts a segment
-  float P[K], S[K];  // the segmented forward and backward minima
-  int s_first = 0, e_last = 0;  // start of lane lane0's segment, end of lane0+K-1's
-  bool head_next = false;
-  float fi = inf, bi = inf;
+  int sw = wlane0, pe = wlane0;
+  int pl[K + 3];  // each lane's place in its segment (0: it starts one), lanes lane0-2 .. lane0+K
+  float px[K + 1];  // warp-local P at lanes lane0-2 .. lane0+K-2, where the windows end
+  float bown = inf;  // the own warp's first-lane S
   if (bounded) {
-    s_first = lane0 / R * R;
-    int r = lane0 - s_first;
-    int s_last = s_first;
+    sw = divR(wlane0) * R;
+    pe = sw < wlane0 ? sw + R : wlane0;
+    const int r0 = lane0 - divR(lane0) * R;
+    bool head[K];
+    pl[1] = r0 == 0 ? R - 1 : r0 - 1;
+    pl[0] = pl[1] == 0 ? R - 1 : pl[1] - 1;
+    int r = r0;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      head[k] = r == 0;
-      if (head[k]) s_last = lane0 + k;
+    for (int k = 0; k <= K; ++k) {
+      pl[k + 2] = r;
+      if (k < K) head[k] = r == 0;
       if (++r == R) r = 0;
     }
-    head_next = r == 0;
-    e_last = s_last + R - 1;
+    const int s_last = lane0 + K - 1 - pl[K + 1];  // start of lane lane0+K-1's segment
+    const int e_first = lane0 - r0 + R - 1;        // end of lane lane0's
+    float P[K], S[K];  // the segmented forward and backward minima
     float pr = cand[0];
     P[0] = pr;
 #pragma unroll
@@ -197,35 +286,65 @@ __device__ __forceinline__ void forbid_prefix(const float (&cand)[K], float ulas
       pr = head[k] ? cand[k] : fminf(pr, cand[k]);
       P[k] = pr;
     }
-    // lanes past M hold no cell: +inf, so they lower no real lane's S
-    float sr = lane0 + K - 1 < M ? cand[K - 1] : inf;
+    float sr = cand[K - 1];
     S[K - 1] = sr;
 #pragma unroll
     for (int k = K - 2; k >= 0; --k) {
-      const float c = lane0 + k < M ? cand[k] : inf;
-      sr = head[k + 1] ? c : fminf(sr, c);
+      sr = head[k + 1] ? cand[k] : fminf(sr, cand[k]);
       S[k] = sr;
     }
     // inclusive scans over the warp's threads: fi the minimum over the
     // lanes up to this thread's last in that lane's segment, bi over the
-    // lanes from this thread's first on in its segment
-    fi = P[K - 1];
-    bi = S[0];
-    const int e_first = s_first + R - 1;
+    // lanes from this thread's first on in its segment. A segment touches
+    // at most reach + 1 threads, and after the rounds below each scan
+    // covers reach of them (the neighbour's scan below adds the last), so
+    // the rounds stop there; a shuffle from past the warp's edge returns
+    // the thread's own value, which changes nothing.
+    const int reach = (R + K - 2) / K;
+    float fi = P[K - 1], bi = S[0];
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
+      if (off >= reach) break;
       const float fo = __shfl_up_sync(dp::kFull, fi, off);
       const float bo = __shfl_down_sync(dp::kFull, bi, off);
-      if (wl >= off && lane0 + K - 1 - off * K >= s_last) fi = fminf(fi, fo);
-      if (wl + off < 32 && lane0 + off * K <= e_first) bi = fminf(bi, bo);
+      if (lane0 + K - 1 - off * K >= s_last) fi = fminf(fi, fo);
+      if (lane0 + off * K <= e_first) bi = fminf(bi, bo);
     }
-    if (wl == 31) fs.fwd[par][warp] = fi;
+    // warp-local P and S: the carries from the warp's other threads
+    const float fe = __shfl_up_sync(dp::kFull, fi, 1);
+    const float be = __shfl_down_sync(dp::kFull, bi, 1);
+    float c = head[0] || wl == 0 ? inf : fe;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (head[k]) c = inf;
+      P[k] = fminf(P[k], c);
+    }
+    c = pl[K + 2] == 0 || wl == 31 ? inf : be;
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+      S[k] = fminf(S[k], c);
+      if (head[k]) c = inf;
+    }
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      *reinterpret_cast<float4*>(s_S + lane0 + k) =
+          make_float4(S[k], S[k + 1], S[k + 2], S[k + 3]);
+    }
+    if (wl == 31) {
+      fs.fwd[par][warp] = P[K - 1];
+      fs.plast[par][warp] = P[K - 2];
+    }
     if (wl == 0) fs.bwd[par][warp] = bi;
+    bown = __shfl_sync(dp::kFull, bi, 0);
+    px[0] = __shfl_up_sync(dp::kFull, P[K - 2], 1);
+    px[1] = __shfl_up_sync(dp::kFull, P[K - 1], 1);
+#pragma unroll
+    for (int k = 0; k < K - 1; ++k) px[k + 2] = P[k];
   }
   if (wl == 31) fs.ulast[par][warp] = ulast;
+  const float ul = __shfl_up_sync(dp::kFull, ulast, 1);
   __syncthreads();
   stage();
-  const float ul = __shfl_up_sync(dp::kFull, ulast, 1);
   uprev0 = t == 0 ? kBig : (wl > 0 ? ul : fs.ulast[par][warp - 1]);
   if (!bounded) {
 #pragma unroll
@@ -233,58 +352,50 @@ __device__ __forceinline__ void forbid_prefix(const float (&cand)[K], float ulas
     iprev0 = t == 0 ? kBig : add(kBig, ge_lm1);
     return;
   }
-  // carried in from the left into the lanes before the thread's first
-  // segment head: the previous thread's scan, and the warps before whose
-  // last lane lies in the segment the warp's first lane is in
-  const int sw = __shfl_sync(dp::kFull, s_first, 0);
-  const int ew = __shfl_sync(dp::kFull, e_last, 31);
-  const int cf = __reduce_min_sync(
-      dp::kFull, dp::key(wl < warp && wl * 32 * K + 32 * K - 1 >= sw ? fs.fwd[par][wl] : inf));
-  const int cb = __reduce_min_sync(
-      dp::kFull, dp::key(wl > warp && wl < nwarps && wl * 32 * K <= ew ? fs.bwd[par][wl] : inf));
-  const float fe = __shfl_up_sync(dp::kFull, fi, 1);
-  const float be = __shfl_down_sync(dp::kFull, bi, 1);
-  float c = head[0] ? inf
-                    : fminf(wl > 0 ? fe : inf, s_first < wlane0 ? dp::unkey(cf) : inf);
+  // window i ends at lane x = lane0-2+i and starts at y = yb+i; a warp's
+  // first thread takes P at lanes lane0-2 and lane0-1 (the previous warp's)
+  // whole from the slots, so its first two windows take no cw
+  const int yb = lane0 - 1 - R;
+  float win[K + 1];
+  if (R <= W) {
+    // every lane a window reads lies in its end's warp or the one before:
+    // P at the previous warp's last lanes is warp-local there
+    const float cw = warp > 0 ? fs.fwd[par][warp - 1] : inf;
+    if (wl == 0) {
+      px[0] = warp > 0 ? fs.plast[par][warp - 1] : inf;
+      px[1] = cw;
+    }
+    const float* row = s_S + yb;  // at least -1 - W: in the guard
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (head[k]) c = inf;
-    P[k] = fminf(P[k], c);
-  }
-  // and from the right into the lanes after its last head
-  c = head_next ? inf : fminf(wl < 31 ? be : inf, e_last > wlast ? dp::unkey(cb) : inf);
+    for (int i = 0; i <= K; ++i) {
+      const float s = (unsigned)(yb + i - sw) < (unsigned)(wlane0 - sw) ? fminf(row[i], bown)
+                                                                         : row[i];
+      const bool take = lane0 - 2 + i < pe && (i >= 2 || wl > 0);
+      win[i] = fminf(s, take ? fminf(px[i], cw) : px[i]);
+    }
+  } else {
+    const int wlo = max(yb, 0) >> lgW;  // the warp of the first window start
+    const WideCarries c =
+        wide_carries<K>(fs, par, R, rdiv, warp, wl, nwarps, wlo, pl[0] > W - 2);
+    if (wl == 0) {
+      px[0] = warp > 0 ? fminf(fs.plast[par][warp - 1], c.pw2) : inf;
+      px[1] = c.cw;
+    }
 #pragma unroll
-  for (int k = K - 1; k >= 0; --k) {
-    S[k] = fminf(S[k], c);
-    if (head[k]) c = inf;
+    for (int i = 0; i <= K; ++i) {
+      const int x = lane0 - 2 + i, y = yb + i;
+      const int wy = max(y, 0) >> lgW;
+      // y's segment (ending at x - pl[i+1]) reaches past y's warp
+      const bool need = y >= 0 && x - pl[i + 1] >= (wy + 1) * W;
+      const float s = s_S[max(y, -1)];
+      const float sc = need ? fminf(s, wy == wlo ? c.bA : c.bB) : s;
+      const bool take = x < pe && (i >= 2 || wl > 0);
+      win[i] = fminf(sc, take ? fminf(px[i], c.cw) : px[i]);
+    }
   }
+  iprev0 = t == 0 ? kBig : add(win[0], ge_lm1);
 #pragma unroll
-  for (int k = 0; k < K; k += 4) {
-    *reinterpret_cast<float4*>(s_S + lane0 + k) = make_float4(S[k], S[k + 1], S[k + 2], S[k + 3]);
-  }
-  // P at lanes lane0-2 and lane0-1: the previous thread's, across a warp
-  // boundary through the slots
-  float pm1 = __shfl_up_sync(dp::kFull, P[K - 1], 1);
-  float pm2 = __shfl_up_sync(dp::kFull, P[K - 2], 1);
-  if (wl == 31) {
-    fs.plast[par][warp][0] = P[K - 2];
-    fs.plast[par][warp][1] = P[K - 1];
-  }
-  __syncthreads();
-  if (wl == 0 && warp > 0) {
-    pm2 = fs.plast[par][warp - 1][0];
-    pm1 = fs.plast[par][warp - 1][1];
-  }
-  // min(cand[x-R+1 .. x]) from P[x] = px, BIG standing in left of lane 0
-  auto wm = [&](int x, float px) {
-    const int y = x - R + 1;
-    return y < 0 ? fminf(px, kBig) : fminf(s_S[y], px);
-  };
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    prefix[k] = lane0 + k == 0 ? kBig : wm(lane0 + k - 1, k == 0 ? pm1 : P[k - 1]);
-  }
-  iprev0 = t == 0 ? kBig : add(wm(lane0 - 2, pm2), ge_lm1);
+  for (int k = 0; k < K; ++k) prefix[k] = lane0 + k == 0 ? kBig : win[k + 1];
 }
 
 template <int K, bool kForbid>
@@ -313,12 +424,12 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
   const int cr = lens[2 * b + 1];
   const int q1 = ql - 1;
   const uint8_t* prof = fgq + (long long)(fam_idx ? fam_idx[b] : b) * C * 6;
-  // forbid mode: the row's budgets, and the S row (one float a lane of the
-  // block) with the exchange slots behind it
+  // forbid mode: the row's budgets, and the two S rows (by column parity)
+  // with the exchange slots behind them
   const int32_t* bud = kForbid ? budget + (long long)b * C : nullptr;
   extern __shared__ __align__(16) float s_dyn[];
-  float* s_S = s_dyn;
-  ForbidSlots& fs = *reinterpret_cast<ForbidSlots*>(s_dyn + nthreads * K);
+  const int srow = srow_floats(nthreads * K, K);
+  ForbidSlots& fs = *reinterpret_cast<ForbidSlots*>(s_dyn + 2 * srow);
 
   // lane constants: the byte offset of the lane's mask in a column's
   // costs, (i+1)*ge, i*ge
@@ -339,6 +450,13 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
     s_b1j = 0;
   }
   stage_columns(s_col[0], prof, bud, 0, C, cr, p, t, nthreads);
+  if constexpr (kForbid) {
+    stage_rdiv(s_col[0], bud, 0, C, M, t, nthreads);
+    for (int e = t; e < guard_floats(K); e += nthreads) {
+      s_dyn[e] = kBig;
+      s_dyn[srow + e] = kBig;
+    }
+  }
   __syncthreads();
 
   float b1v = kBig, b2v = kBig;  // candidate 1 (owner of lane ql-1), candidate 2 (thread 0)
@@ -410,11 +528,13 @@ profile_dp_kernel(const uint8_t* __restrict__ fgq, const int32_t* __restrict__ f
         run = fminf(run, cand[k]);
       }
     } else {
-      forbid_prefix<K>(cand, U[K - 1], col.budget, M, lane0, t, warp, wl, nwarps, j & 1, s_S,
-                       fs, prefix, uprev0, iprev0, ge_lm1, [&] {
+      float* s_S = s_dyn + (j & 1) * srow + guard_floats(K);
+      forbid_prefix<K>(cand, U[K - 1], col.budget, col.rdiv, M, lane0, t, warp, wl, nwarps,
+                       j & 1, s_S, fs, prefix, uprev0, iprev0, ge_lm1, [&] {
                          if (stage_next) {
                            stage_columns(s_col[(chunk + 1) & 1], prof, bud, chunk + 1, C, cr,
                                          p, t, nthreads);
+                           stage_rdiv(s_col[(chunk + 1) & 1], bud, chunk + 1, C, M, t, nthreads);
                          }
                        });
     }
@@ -533,9 +653,9 @@ int lanes_for(int M) {
 
 int threads_for(int M, int K) { return ((M + K - 1) / K + 31) / 32 * 32; }
 
-// forbid mode's dynamic shared memory: the S row and the exchange slots
+// forbid mode's dynamic shared memory: the two S rows and the exchange slots
 size_t forbid_smem(int threads, int K) {
-  return (size_t)threads * K * sizeof(float) + sizeof(ForbidSlots);
+  return 2 * (size_t)srow_floats(threads * K, K) * sizeof(float) + sizeof(ForbidSlots);
 }
 
 const void* kernel_for(int K, bool forbid) {

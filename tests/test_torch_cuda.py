@@ -323,15 +323,29 @@ def test_profile_dp_rejects_unsupported_m(cuda):
         pk.profile_dp(fgq.to(cuda), qmask.to(cuda), lens.to(cuda), DpParams())
 
 
+def _lanes(M):
+    """The kernel's lanes a thread at M (csrc/profile_dp.cu lanes_for)."""
+    K = 4
+    while K < 16 and M > K * 512:
+        K *= 2
+    return K
+
+
 def _budgets(seed, B, C, M):
     """(B, C) int32 insertion budgets for the forbid mode: row 0 all 0,
-    row 1 all 1, row 2 small (0-3), row 3 above M, the rest a mix of 0,
-    1, small, mid-size, M - 1, M, above M and 10**6."""
+    row 1 all 1, row 2 small (0-3), row 3 above M, row 4 cycling column
+    by column through every class edge of the kernel's lane geometry
+    (below 1, 1, K and K + 1 lanes a thread, 32 K - 1, 32 K and 32 K + 1
+    around one warp's lanes, M - 1, M, above M), the rest a mix of 0,
+    1, small, mid-size, those edges, above M and 10**6."""
     rng = np.random.default_rng(seed)
-    choices = np.array([0, 0, 1, 2, 3, 5, 9, 17, 33, 100, M - 1, M, M + 3, 10**6])
+    K = _lanes(M)
+    edges = [0, 1, K, K + 1, 32 * K - 1, 32 * K, 32 * K + 1, M - 1, M, M + 3]
+    choices = np.array([0, 0, 1, 2, 3, 5, 9, 17, 33, 100, *edges, 10**6])
     bud = choices[rng.integers(0, len(choices), (B, C))]
     for b, row in enumerate((np.zeros(C), np.ones(C), rng.integers(0, 4, C),
-                             M + 1 + rng.integers(0, 50, C))[:B]):
+                             M + 1 + rng.integers(0, 50, C),
+                             np.resize(edges, C))[:B]):
         bud[b] = row
     return torch.from_numpy(bud.astype(np.int32))
 
@@ -339,13 +353,17 @@ def _budgets(seed, B, C, M):
 @pytest.mark.parametrize(
     "B,C,M",
     [(1, 1, 4), (4, 17, 8), (9, 96, 132), (5, 300, 1536), (3, 257, 2052), (2, 40, 4100),
-     (2, 20, 8200), (1, 5, 16384)],
+     (2, 20, 8200), (1, 5, 16384),
+     # a ragged last warp at 4, 8 and 16 lanes a thread: one thread of
+     # 13 warps, one and a half of 10, one and a quarter of 9
+     (6, 260, 1540), (5, 70, 2316), (5, 30, 4116)],
 )
 def test_profile_dp_forbid_matches_plain(cuda, B, C, M):
     """The bounded-insertion mode at the thread-count edges, the 4, 8
-    and 16 lanes-a-thread instantiations, C past the 256-column staging
-    chunk and M up to the kernel's limit: bp, best_c, best_i, raw and
-    the chain traceback's emit exact; counted as profile_dp_forbid."""
+    and 16 lanes-a-thread instantiations (with a ragged last warp), C
+    past the 256-column staging chunk, M up to the kernel's limit and
+    budgets at the edges of its window classes: bp, best_c, best_i, raw
+    and the chain traceback's emit exact; counted as profile_dp_forbid."""
     fgq, qmask, lens = _profiles(B * C + M + 1, B, C, M)
     budget = _budgets(B + C + M, B, C, M)
     params = DpParams()

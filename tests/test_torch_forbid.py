@@ -10,6 +10,7 @@ compared exactly, and so are the traceback's emit, the dispatch (with
 padding rows and dedup) and the CLI's bytes.
 """
 
+import functools
 from unittest import mock
 
 import jax
@@ -21,6 +22,7 @@ import torch
 from sina_tpu.align import AlignerConfig as JaxAlignerConfig
 from sina_tpu.align import align_sequence as jax_align_sequence
 from sina_tpu.ops import profile as jax_profile
+from sina_tpu.ops.align_kernel import _windowed_min
 from sina_tpu.ops.profile import _device_unpack_fgq, _profile_batched_fn, chain_dp
 from sina_tpu.ops.profile import profile_dp_dispatch as jax_dispatch
 from sina_tpu.ops.profile import profile_dp_fetch as jax_fetch
@@ -257,3 +259,241 @@ def test_forbid_cli_output_is_byte_identical(case, tmp_path, monkeypatch):
     assert seen
     if "amplicon" in case:
         assert any(full.any() for full in seen)
+
+
+# --- the forbid kernel's one-barrier window algebra, modelled in numpy ---
+#
+# csrc/profile_dp.cu (forbid_prefix) computes each lane's trailing-window
+# minimum min(cand[x-R+1 .. x]) with one block barrier a column: lanes in
+# threads of K, threads in warps of 32, segments of R lanes from multiples
+# of R, warp-local forward and backward minima P and S before the barrier
+# (S written to a shared row behind a guard of BIG, the warps' edge values
+# to slots), and
+# the carries from the warps to the left after it.  The model below takes
+# the same steps on numpy arrays, one row per column (each with its own R),
+# shuffles included, so a carry or index bug shows here before a chip run.
+# Nothing in the port uses it.
+
+_KBIG = np.float32(1e6)
+_INF = np.float32(np.inf)
+
+
+def _shfl_up(v, off):
+    """__shfl_up_sync over (n, T) thread values: a lane below `off`
+    keeps its own value."""
+    i = np.arange(v.shape[1])
+    return v[:, np.where(i % 32 >= off, i - off, i)]
+
+
+def _shfl_down(v, off):
+    i = np.arange(v.shape[1])
+    return v[:, np.where(i % 32 + off < 32, i + off, i)]
+
+
+def _shfl_idx(v, src):
+    """__shfl_sync from lane `src` (n, T) of each thread's warp."""
+    base = np.arange(v.shape[1]) // 32 * 32
+    return np.take_along_axis(v, base + src, axis=1)
+
+
+def _magic_div(n, R, rdiv):
+    """n / R as the kernel takes it: __umulhi(n, ceil(2^32 / R)), n for
+    R = 1."""
+    q = (n.astype(np.uint64) * rdiv.astype(np.uint64)) >> np.uint64(32)
+    return np.where(R == 1, n, q.astype(np.int64))
+
+
+def _one_barrier_windows(cand, budget, M, K):
+    """The kernel's windows for a (n, L) block of insertion candidates
+    (L = threads * K, lanes past M garbage) with budgets (n,) >= 1.
+    Returns (win (n, T, K+1): the windows ending at lanes lane0-2 ..
+    lane0+K-2 of each thread, rows (n, 32 K + 4 + L): the S row as
+    written, behind its guard)."""
+    n, L = cand.shape
+    T, W = L // K, 32 * K
+    nwarps = T // 32
+    lgW = W.bit_length() - 1
+    R = np.minimum(budget, M).astype(np.int64)[:, None]
+    rdiv = np.where(R > 1, (0xFFFFFFFF + R) // R, 0)
+
+    def div(x):
+        return _magic_div(np.broadcast_to(x, np.broadcast_shapes(np.shape(x), R.shape)), R, rdiv)
+
+    t = np.arange(T)
+    lane0 = (t * K)[None, :]
+    warp, wl = (t // 32)[None, :], (t % 32)[None, :]
+    wlane0 = lane0 - wl * K
+    sw = div(wlane0) * R
+    pe = np.where(sw < wlane0, sw + R, wlane0)
+    r0 = lane0 - div(lane0) * R
+    # pl[..., j]: the place of lane lane0-2+j in its segment
+    pl = np.zeros((n, T, K + 3), np.int64)
+    pl[..., 1] = np.where(r0 == 0, R - 1, r0 - 1)
+    pl[..., 0] = np.where(pl[..., 1] == 0, R - 1, pl[..., 1] - 1)
+    pl_m2 = pl[..., 0]
+    r = r0.copy()
+    for k in range(K + 1):
+        pl[..., k + 2] = r
+        r = np.where(r + 1 == R, 0, r + 1)
+    head = pl[..., 2:K + 2] == 0
+    s_last = lane0 + K - 1 - pl[..., K + 1]
+    e_first = lane0 - r0 + R - 1
+    c3 = cand.reshape(n, T, K)
+    P, S = np.empty_like(c3), np.empty_like(c3)
+    P[..., 0] = c3[..., 0]
+    for k in range(1, K):
+        P[..., k] = np.where(head[..., k], c3[..., k], np.minimum(P[..., k - 1], c3[..., k]))
+    S[..., K - 1] = c3[..., K - 1]
+    for k in range(K - 2, -1, -1):
+        S[..., k] = np.where(head[..., k + 1], c3[..., k], np.minimum(S[..., k + 1], c3[..., k]))
+    # a segment touches at most reach + 1 threads: the rounds stop at reach
+    reach = (R + K - 2) // K
+    fi, bi = P[..., K - 1].copy(), S[..., 0].copy()
+    for off in (1, 2, 4, 8, 16):
+        fo, bo = _shfl_up(fi, off), _shfl_down(bi, off)
+        fi = np.where((off < reach) & (lane0 + K - 1 - off * K >= s_last), np.minimum(fi, fo), fi)
+        bi = np.where((off < reach) & (lane0 + off * K <= e_first), np.minimum(bi, bo), bi)
+    fe, be = _shfl_up(fi, 1), _shfl_down(bi, 1)
+    c = np.where(head[..., 0] | (wl == 0), _INF, fe)
+    for k in range(K):
+        c = np.where(head[..., k], _INF, c)
+        P[..., k] = np.minimum(P[..., k], c)
+    c = np.where((pl[..., K + 2] == 0) | (wl == 31), _INF, be)
+    for k in range(K - 1, -1, -1):
+        S[..., k] = np.minimum(S[..., k], c)
+        c = np.where(head[..., k], _INF, c)
+    # the S row behind its guard of BIG (window starts left of lane 0)
+    G = W + 4
+    rows = np.full((n, G + L), np.nan, np.float32)
+    rows[:, :G] = _KBIG
+    rows[:, G:] = S.reshape(n, L)
+    fwd, plast = P[:, 31::32, K - 1], P[:, 31::32, K - 2]
+    bwd = bi[:, 0::32]
+    bown = _shfl_idx(bi, np.zeros((n, T), np.int64))
+    px = np.empty((n, T, K + 1), np.float32)
+    px[..., 0] = _shfl_up(P[..., K - 2], 1)
+    px[..., 1] = _shfl_up(P[..., K - 1], 1)
+    px[..., 2:] = P[..., :K - 1]
+    # --- the barrier: everything below reads only what is above ---
+    i = np.arange(K + 1)
+    x = lane0[..., None] - 2 + i
+    yb = lane0 - 1 - R
+    y = yb[..., None] + i
+    take = (x < pe[..., None]) & ((i >= 2) | (wl > 0)[..., None])
+    prev = np.broadcast_to(np.maximum(warp - 1, 0), (n, T))
+    plast_prev = np.take_along_axis(plast, prev, axis=1)
+
+    def read(yy):
+        return np.take_along_axis(rows, (G + yy).reshape(n, -1), axis=1).reshape(yy.shape)
+
+    # R <= W: the previous warp's slot, and the own warp's first-lane S
+    # where y's segment reaches into the own warp
+    cw = np.where(warp > 0, np.take_along_axis(fwd, prev, axis=1), _INF)
+    pxn = px.copy()
+    pxn[..., 0] = np.where(wl == 0, np.where(warp > 0, plast_prev, _INF), px[..., 0])
+    pxn[..., 1] = np.where(wl == 0, cw, px[..., 1])
+    s = read(y)
+    s = np.where((y >= sw[..., None]) & (y < wlane0[..., None]), np.minimum(s, bown[..., None]), s)
+    near = np.minimum(s, np.where(take, np.minimum(pxn, cw[..., None]), pxn))
+
+    # any R (wide_carries): lane l of a warp stands for warp l; Fw (P at
+    # its last lane) and Bw (S at its first) by segmented scans over the
+    # warps' slots, as the lanes were scanned over the threads
+    def lanes_of(v, src):  # __shfl_sync of a (n, 32) warp value from lane src (n, T)
+        return np.take_along_axis(v, np.broadcast_to(src, (n, T)), axis=1)
+
+    lw = np.arange(32)[None, :]
+    live = lw < nwarps
+    F = np.where(live, np.pad(fwd, ((0, 0), (0, 32 - nwarps))), _INF)
+    Bv = np.where(live, np.pad(bwd, ((0, 0), (0, 32 - nwarps))), _INF)
+    fl = lw * W
+    ll = fl + W - 1
+    sl = div(ll) * R
+    el = div(fl) * R + R - 1
+    for off in (1, 2, 4, 8, 16):
+        fo, bo = _shfl_up(F, off), _shfl_down(Bv, off)
+        F = np.where(ll - off * W >= sl, np.minimum(F, fo), F)
+        Bv = np.where(fl + off * W <= el, np.minimum(Bv, bo), Bv)
+    wlo = np.maximum(yb, 0) >> lgW
+    fcw = np.where(warp > 0, lanes_of(F, np.maximum(warp - 1, 0)), _INF)
+    pw2 = np.where(pl_m2 > W - 2, lanes_of(F, np.maximum(warp - 2, 0)), _INF)
+    bA = lanes_of(Bv, np.minimum(wlo + 1, 31))
+    bB = lanes_of(Bv, np.minimum(wlo + 2, 31))
+    pxf = px.copy()
+    pxf[..., 0] = np.where(wl == 0, np.where(warp > 0, np.minimum(plast_prev, pw2), _INF),
+                           px[..., 0])
+    pxf[..., 1] = np.where(wl == 0, fcw, px[..., 1])
+    # y's segment (ending at x - the place of lane x+1) reaches past y's warp
+    wy = np.maximum(y, 0) >> lgW
+    need = (y >= 0) & (x - pl[..., 1:K + 2] >= (wy + 1) * W)
+    s = read(np.maximum(y, -1))
+    s = np.where(need, np.minimum(s, np.where(wy == wlo[..., None], bA[..., None],
+                                              bB[..., None])), s)
+    far = np.minimum(s, np.where(take, np.minimum(pxf, fcw[..., None]), pxf))
+    return np.where((R <= W)[..., None], near, far), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_windowed_min(M: int):
+    return jax.jit(jax.vmap(lambda w, r: _windowed_min(w, r, M)))
+
+
+@pytest.mark.parametrize("pattern", ["random", "heads", "ends"])
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("M", [8, 132, 1536])
+def test_one_barrier_window_algebra_matches_windowed_min(M, K, pattern):
+    """The model of the forbid kernel's one-barrier windows against the
+    JAX package's _windowed_min for every R in 1..M+2 (R > M clips to
+    M), with lanes past M holding garbage: every window a real lane
+    reads, the one of lane lane0-1 (prefix) and of lane0-2 (the
+    thread's iprev0).  The data: few distinct values (ties), or each
+    segment's minimum at its head (what P's carries bring in) or at its
+    last lane (S's carries)."""
+    rng = np.random.default_rng(M * 100 + K)
+    T = (-(-M // K) + 31) // 32 * 32
+    L = T * K
+    budget = np.arange(1, M + 3)
+    place = np.arange(L)[None, :] % np.minimum(budget, M)[:, None]
+    cand = {"random": rng.integers(-40, 40, (len(budget), L)),
+            "heads": place,
+            "ends": np.minimum(budget, M)[:, None] - 1 - place}[pattern].astype(np.float32)
+    cand[:, M:] = rng.standard_normal((len(budget), L - M)).astype(np.float32) * -1e3
+    win, rows = _one_barrier_windows(cand, budget, M, K)
+    assert not np.isnan(rows).any()
+    want = np.concatenate([
+        np.asarray(_jax_windowed_min(M)(jnp.asarray(cand[i:i + 256, :M]),
+                                        jnp.asarray(budget[i:i + 256])))
+        for i in range(0, len(budget), 256)])
+    assert want.dtype == np.float32
+    real = np.arange(1, M)
+    # prefix[k] of lane x = lane0 + k is the window ending at x - 1
+    np.testing.assert_array_equal(win[:, real // K, real % K + 1], want[:, real - 1])
+    t = np.arange(1, T)
+    t = t[t * K < M]
+    np.testing.assert_array_equal(win[:, t, 0], want[:, t * K - 2])
+
+
+def test_one_barrier_magic_division_is_exact():
+    """n / R = __umulhi(n, ceil(2^32 / R)) for every R in 2..16384 at
+    every n < 2^16 where the quotient steps (n = qR - 1 and qR), the
+    only places an over-estimate can show."""
+    for R in range(2, 16385):
+        rdiv = np.uint64((0xFFFFFFFF + R) // R)
+        n = np.concatenate([np.arange(R - 1, 1 << 16, R), np.arange(R, 1 << 16, R)])
+        got = (n.astype(np.uint64) * rdiv) >> np.uint64(32)
+        np.testing.assert_array_equal(got.astype(np.int64), n // R)
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+def test_window_starts_stay_inside_the_s_row_guard(K):
+    """Where R <= 32 K the kernel reads each window's start unclamped, so
+    every start left of lane 0 must land in the S row's guard of 32 K + 4
+    floats in front of it; wider windows clamp their starts to -1."""
+    W = 32 * K
+    for M in (8, 132, 1536, 16384):
+        T = (-(-M // K) + 31) // 32 * 32
+        lane0 = np.arange(T)[:, None] * K
+        R = np.arange(1, min(W, M) + 1)[None, :]
+        starts = lane0 - 1 - R  # the thread's first window start, the lowest
+        assert starts.min() >= -(W + 4)
+        assert (starts + K < T * K).all()  # and the last stays inside the row
