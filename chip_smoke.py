@@ -7,8 +7,8 @@ Phases, each printing a line:
   1. environment: GPU name and power limit, torch/CUDA versions; fails
      unless the port's native host library (sina_tpu_torch/native,
      built with g++) loaded;
-  2. build the six CUDA kernels from sina_tpu_torch/csrc (one nvcc per
-     source, all started together);
+  2. build the CUDA kernels from the seven sources of sina_tpu_torch/csrc
+     (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (exact), with both times and the card's bound;
      the packed k-mer scorer also with its group maxima (exact), and
@@ -37,7 +37,16 @@ Phases, each printing a line:
      its traceback on 128 family graphs of 40 references (N = 4096)
      and 128 full-length queries (M = 1536), in the simple, weighted,
      bounded-insertion (aspace) and substitution-matrix modes, and the
-     dense route (no measured bucket takes it) on the same bucket;
+     dense route's two kernels (csrc/graph_dense.cu) on the same bucket,
+     exact against their plain versions and equal to the graph kernels;
+     the dense route's kernels on a bucket that takes the route (128
+     families of phase 18's reference, largest predecessor distance 32
+     or more, N = 4096, M = 1536) in the simple and forbid modes, timed,
+     with their launch plans and bounds, and in all five modes at
+     B = 32, each exact against the plain versions; and the same
+     kernels on 32 queries of 1537-2048 nt (N = 4096, M = 2048: the DP's
+     4-lane kernel in 512 threads) in the simple and forbid modes,
+     exact;
   4. the CLI (sina_tpu_torch.cli.main --device cuda) on a small
      generated reference: the profile engine, --fs-graph, --fs-graph
      --insertion forbid, --insertion forbid, --fs-no-graph --insertion
@@ -96,7 +105,17 @@ Phases, each printing a line:
  17. dryrun_multichip over the card named 8 times ((2, 4)): the tiny
      sharded search, the graph DP data-parallel over 8 devices equal to
      one device's, and the sharded search on a zero-filled 17.2 GB
-     tiled index at SILVA NR's 450k references.
+     tiled index at SILVA NR's 450k references;
+ 18. the graph engine on a reference whose families carry long
+     insertions (20,000 references at width 50,000, one in 20 with a
+     48-base insertion that its relatives skip, as length-variable
+     regions do in real 16S/18S families; made before phase 3): 384
+     full-length queries in three batches of 128 with
+     AlignerConfig(engine="graph"), every graph bucket on the dense route
+     (graph_dense_route and both dense kernels' launches equal to the
+     bucket count, no graph_dp launch), the device's busy share and
+     device ms by kernel; then the first 16 queries again with
+     device="cpu": identical records.
 
 The second-to-last line is the kernels' JSON record, the line before
 it the card's `nvidia-smi` name and power limit, and the last line
@@ -133,6 +152,13 @@ FAMILY, N_GRAPH, N_GRAPH_QUERIES = 40, 4096, 384
 DENSE_S = 16_384
 # the forbid profile path: 384 queries, one warm-up and two steady batches
 N_FORBID_QUERIES = 384
+# the dense route's path (phase 18): 20,000 references, one in 20 with a
+# 48-base insertion at the alignment's middle column, 384 queries
+N_INDEL_REFS, INDEL_LEN, INDEL_EVERY, N_INDEL_QUERIES = 20_000, 48, 20, 384
+# the graph engine's longer query bucket (queries of 1537-2048 nt; a
+# quarter of phase 18's): the dense DP's 4-lane kernel at its most
+# threads, 512
+M_LONG = 2048
 # turn + search: 64 queries, each in the four orientations
 N_TURN = 64
 TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
@@ -193,6 +219,12 @@ GRAPH_INSTS_PER_PRED_CELL = (11, 3)
 # end node and query position: end candidate 2 4 (1 integer)
 GRAPH_INSTS_PER_NODE = (8, 1)
 GRAPH_INSTS_PER_END_CELL = (4, 1)
+# ops/align_kernel.py poa_dp_dense, per real node and query position: as
+# the graph DP's cell but the match cost is a rounded product and an add
+# (2, not 1): 25, 9 integer; each predecessor slot a real node holds
+# costs what a graph predecessor probe does (the same value and argmin
+# work: GRAPH_INSTS_PER_PRED_CELL), and the nodes and end cells the same
+DENSE_INSTS_PER_CELL = (25, 9)
 # the kernels' times before their redesign for this card (PERF.md section
 # 6 names the runs; same shapes, an NVIDIA H100 80GB HBM3 at 700 W; the
 # graph traceback's in the simple mode); printed beside this run's, so
@@ -228,10 +260,15 @@ KERNELS = {
                  "sina_tpu/ops/graph_pallas.py:107"),
     "graph_traceback": ("sina_tpu_torch/csrc/graph_traceback.cu",
                         "sina_tpu/ops/graph_pallas.py:333"),
+    "graph_dp_dense": ("sina_tpu_torch/csrc/graph_dense.cu",
+                       "sina_tpu/ops/align_kernel.py:409"),
+    "graph_traceback_dense": ("sina_tpu_torch/csrc/graph_dense.cu",
+                              "sina_tpu/ops/align_kernel.py:626"),
 }
 PROFILE_PATH = ("kmer_score", "profile_dp", "chain_traceback")
 FORBID_PATH = ("kmer_score", "profile_dp_forbid", "chain_traceback")
 GRAPH_PATH = ("kmer_score", "graph_dp", "graph_traceback")
+DENSE_ROUTE_PATH = ("kmer_score", "graph_dp_dense", "graph_traceback_dense")
 
 
 def say(msg: str) -> None:
@@ -754,65 +791,89 @@ def phase_dense_kernel(dev, rng) -> dict:
             "library_ms": library_ms}
 
 
-def graph_bucket():
-    """128 family graphs of 40 references and 128 full-length queries
-    from a 3,000-reference, width-50,000 generated alignment: each
-    query evolves off a reference, and its family is the first 40
-    members of that reference's ancestor group (the relatives a family
-    search returns).  Queries longer than 1536 are skipped, so the
-    bucket is the main path's N = 4096 x M = 1536.  Returns CPU
-    tensors (pos, mask, weight, predbits, flags, qmask, qlen), the
-    insertion budgets, the ring depth, the column-weight width and the
-    dense route's graph planes (mask, preds, is_start, is_end,
-    n_real)."""
+def family_graphs(db, seed: int, B: int = B_MAIN, M: int = M_MAIN) -> dict:
+    """B family graphs of 40 references of `db` and B full-length
+    queries: each query evolves off a reference (seed `seed`), and its
+    family is the first 40 members of that reference's ancestor group
+    (the relatives a family search returns).  Only queries of the M
+    bucket are kept (longer than 1536 for M = 2048, at most 1536 for
+    the main path's M = 1536), so the bucket is N = 4096 x M.
+    Returns the dense route's operands as CPU tensors (pos, mask,
+    weight, preds, is_start, is_end, qmask, qlen, n_real), the
+    insertion budgets, the column-weight width and the largest
+    predecessor distance."""
     import torch
 
     from sina_tpu_torch import testing
-    from sina_tpu_torch.ops import graph_kernel as gk
     from sina_tpu_torch.ops.graph import build_graphs_batch, pad_graph
 
-    db = testing.make_reference_large(3000, n_core=1450, width=WIDTH, seed=1234)
-    pool = testing.make_queries(db, n=4 * B_MAIN, seed=5, branch_len=0.7)
-    qs = [q for q in pool if len(q.masks) <= M_MAIN][:B_MAIN]
+    lo = 0 if M <= M_MAIN else M_MAIN
+    pool = testing.make_queries(db, n=4 * B_MAIN, seed=seed, branch_len=0.7)
+    qs = [q for q in pool if lo < len(q.masks) <= M][:B]
+    if len(qs) < B:
+        raise AssertionError(f"{len(qs)} of {len(pool)} queries fall in the M = {M} "
+                             f"bucket, fewer than {B}")
     fams = []
     for q in qs:
-        g0 = int(q.attrs["parent"][3:]) // 64 * 64
+        g0 = db.index_of(q.attrs["parent"]) // 64 * 64
         fams.append(db.sequences[g0:g0 + FAMILY])
     graphs = build_graphs_batch(fams)
     nr = np.asarray([g.n_nodes for g in graphs], np.int32)
     if nr.max() > N_GRAPH:
         raise AssertionError(f"a family graph has {nr.max()} nodes > {N_GRAPH}")
     graphs = [pad_graph(g, N_GRAPH) for g in graphs]
-    qm = np.zeros((B_MAIN, M_MAIN), np.uint8)
-    ql = np.zeros(B_MAIN, np.int32)
+    qm = np.zeros((B, M), np.uint8)
+    ql = np.zeros(B, np.int32)
     for b, q in enumerate(qs):
         qm[b, :len(q.masks)] = q.masks
         ql[b] = len(q.masks)
-    preds = np.stack([g.preds for g in graphs])
+    preds = np.stack([g.preds for g in graphs]).astype(np.int32)
     maxd = int((np.arange(N_GRAPH)[None, :, None] - preds)[preds >= 0].max())
-    mask, is_start, is_end = (np.stack([getattr(g, k) for g in graphs])
-                              for k in ("mask", "is_start", "is_end"))
-    mask_u8, predbits, flags = gk.pack_graph_host(mask, preds, is_start, is_end, nr)
     t = torch.from_numpy
-    ops = (t(np.stack([g.pos for g in graphs]).astype(np.int32)), t(mask_u8),
-           t(np.stack([g.weight for g in graphs]).astype(np.float32)),
-           t(predbits), t(flags), t(qm), t(ql))
-    budget = t(np.stack([np.clip(g.max_insert, 0, 10**6) for g in graphs])
-               .astype(np.int32))
-    say(f"phase 3 graph bucket: {B_MAIN} graphs of {nr.min()}-{nr.max()} "
-        f"nodes padded to {N_GRAPH}, queries of {ql.min()}-{ql.max()} nt "
-        f"in M={M_MAIN}, largest predecessor distance {maxd}")
-    dense = (t(mask_u8), t(preds), t(is_start), t(is_end), t(nr))
-    return ops, budget, gk.pick_k_ring(maxd), graphs[0].width + 2, dense
+
+    def stack(key, dtype):
+        return t(np.stack([getattr(g, key) for g in graphs]).astype(dtype))
+
+    ops = dict(pos=stack("pos", np.int32), mask=stack("mask", np.uint8),
+               weight=stack("weight", np.float32), preds=t(preds),
+               is_start=stack("is_start", bool), is_end=stack("is_end", bool),
+               qmask=t(qm), qlen=t(ql), n_real=t(nr))
+    budget = t(np.stack([np.clip(g.max_insert, 0, 10**6) for g in graphs]).astype(np.int32))
+    say(f"phase 3 graph bucket ({len(db)} references, width {db.width}): {B} graphs "
+        f"of {nr.min()}-{nr.max()} nodes padded to {N_GRAPH}, queries of "
+        f"{ql.min()}-{ql.max()} nt in M={M}, largest predecessor distance {maxd}")
+    return dict(ops=ops, budget=budget, width=graphs[0].width + 2, maxd=maxd)
+
+
+def graph_bucket():
+    """The graph kernels' bucket: family_graphs of a 3,000-reference,
+    width-50,000 generated alignment.  Returns the graph kernel's CPU
+    tensors (pos, mask, weight, predbits, flags, qmask, qlen), the
+    insertion budgets, the ring depth, the column-weight width and the
+    dense route's operands (family_graphs')."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.ops import graph_kernel as gk
+
+    db = testing.make_reference_large(3000, n_core=1450, width=WIDTH, seed=1234)
+    fg = family_graphs(db, seed=5)
+    d = fg["ops"]
+    mask_u8, predbits, flags = gk.pack_graph_host(
+        d["mask"].numpy(), d["preds"].numpy(), d["is_start"].numpy(),
+        d["is_end"].numpy(), d["n_real"].numpy())
+    t = torch.from_numpy
+    ops = (d["pos"], t(mask_u8), d["weight"], t(predbits), t(flags), d["qmask"], d["qlen"])
+    return ops, fg["budget"], gk.pick_k_ring(fg["maxd"]), fg["width"], d
 
 
 def phase_graph_kernels(dev) -> dict:
     """The graph DP and its traceback against their plain versions on
     the card, at the main path's shapes, in four modes: bp, best_j,
     best_i, raw, emit and the walks' completion must match exactly.
-    In the simple mode the dense route (the torch port of the
-    reference's dense core, for buckets with a predecessor 32 or more
-    nodes back) runs on the same bucket and must give the kernels'
+    In the simple mode the dense route's kernels (for buckets with a
+    predecessor 32 or more nodes back) run on the same bucket: exact
+    against their plain versions, and equal to the graph kernels' in
     emit, best_j, best_i and raw."""
     import torch
 
@@ -821,7 +882,7 @@ def phase_graph_kernels(dev) -> dict:
 
     ops, budget, k_ring, width, dense = graph_bucket()
     ops = [a.to(dev) for a in ops]
-    dense = [a.to(dev) for a in dense]
+    dense = {k: a.to(dev) for k, a in dense.items()}
     flags = ops[4]
     rng = np.random.default_rng(99)
     ones = torch.ones((B_MAIN, width), dtype=torch.float32, device=dev)
@@ -885,13 +946,13 @@ def phase_graph_kernels(dev) -> dict:
                              gk.graph_traceback_plan(got[0]), flush)
         if mode == "simple":
             phase_global_ring(kernel, ref, k_ring)
-            phase_dense_route(ops, dense, cw, got, emit, params)
+            phase_dense_route(dense, cw, got, emit, params, k_ring - 1)
             # the node and query planes, the column weights, the uint16
             # bp plane and the end cells; the instructions of each
             # query's cells (its graph's real nodes x its length), of
             # the predecessors each node probes, of its real nodes and
             # of its end nodes' cells
-            n_real, qlen, predbits = dense[4].long(), ops[6].long(), ops[3]
+            n_real, qlen, predbits = dense["n_real"].long(), ops[6].long(), ops[3]
             cells = int((n_real * qlen).sum())
             real = torch.arange(N_GRAPH, device=dev)[None, :] < n_real[:, None]
             npred = torch.zeros_like(predbits, dtype=torch.int64)
@@ -950,35 +1011,226 @@ def phase_global_ring(kernel, ref, k_ring) -> None:
         f"{gk.graph_dp_plan(M_MAIN, depth, False)}")
 
 
-def phase_dense_route(ops, dense, cw, got, emit, params) -> None:
-    """The dense route on the graph kernels' bucket, timed once: its
-    emit, best_j, best_i and raw must equal the kernels'."""
+def dense_check(name: str, d: dict, cw, max_ins, subst, params, maxd: int,
+                timed: bool = False) -> dict:
+    """The dense route's DP and walk kernels on the card operands `d`
+    against their plain versions (also on the card): bp, best_j,
+    best_i, raw, emit and done must be equal, and every walk must end.
+    Returns the kernels' outputs (got, emit) and the plain versions'
+    ms (one run each); with `timed` also each kernel's ms a launch
+    (mean of DP_REPS and TB_REPS launches) and the walk's one launch
+    alone after an L2 flush."""
     import torch
 
     from sina_tpu_torch.ops import align_kernel as ak
 
-    pos, _, weight, _, _, qmask, qlen = ops
-    mask, preds, is_start, is_end, n_real = dense
+    args = (d["pos"], d["mask"], d["weight"], d["preds"], d["is_start"], d["is_end"],
+            d["qmask"], d["qlen"], d["n_real"], cw, params)
+
+    def dp():
+        return ak.graph_dp_dense(*args, max_insert=max_ins, subst=subst, maxd=maxd)
+
+    got = dp()
+
+    def walk():
+        return ak.graph_traceback_dense(*got[:3], d["preds"], d["is_start"])
+
+    emit, done = walk()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bp, bj, bi, raw = ak.poa_dp_dense(pos, mask, weight, preds, is_start, is_end,
-                                      qmask, qlen, n_real, cw, params)
+    ref = ak.poa_dp_dense(*args, max_insert=max_ins, subst=subst)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    demit, done = ak.traceback_dense(bp, bj, bi, preds, is_start)
+    emit_ref, done_ref = ak.traceback_dense(*ref[:3], d["preds"], d["is_start"])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    del bp
+    for n, a, b in zip(("bp", "best_j", "best_i", "raw", "emit", "done"),
+                       (*got, emit, done), (*ref, emit_ref, done_ref)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dense route {name}: {n} disagrees with its plain "
+                                 f"version ({int((a != b).sum())} cells)")
     if int(done.min()) != 1:
-        raise AssertionError("dense route: a traceback walk did not finish")
-    for n, a, b in (("emit", demit, emit), ("best_j", bj.int(), got[1]),
-                    ("best_i", bi.int(), got[2]), ("raw", raw, got[3])):
+        raise AssertionError(f"dense route {name}: a walk did not finish")
+    out = dict(got=got, emit=emit, max_abs_err=float((got[3] - ref[3]).abs().max()),
+               emit_err=int((emit - emit_ref).abs().max()),
+               plain_dp_ms=1e3 * (t1 - t0), plain_tb_ms=1e3 * (t2 - t1))
+    del ref
+    if timed:
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=cw.device)
+        out["dp_ms"] = time_ms(dp, DP_REPS)
+        out["tb_ms"] = time_ms(walk, TB_REPS)
+        out["tb_cold_ms"] = time_launch_ms(walk, TB_REPS, flush)
+    return out
+
+
+def phase_dense_route(dense, cw, got, emit, params, maxd: int) -> None:
+    """The dense route's kernels on the graph kernels' bucket (largest
+    predecessor distance below 32, so the dispatcher sends it to the
+    graph kernels, whose results any core must give): exact against
+    their plain versions, and emit, best_j, best_i and raw equal to the
+    graph kernels'."""
+    import torch
+
+    r = dense_check("on the graph kernels' bucket", dense, cw, None, None, params, maxd,
+                    timed=True)
+    dgot = r["got"]
+    for n, a, b in (("emit", r["emit"], emit), ("best_j", dgot[1].int(), got[1]),
+                    ("best_i", dgot[2].int(), got[2]), ("raw", dgot[3], got[3])):
         if not torch.equal(a, b):
             raise AssertionError(f"dense route {n} differs from the graph kernels' "
                                  f"({int((a != b).sum())} cells)")
-    say(f"phase 3 graph dense route simple: same bucket, emit/best_j/best_i/raw "
-        f"equal to the kernels'; poa_dp_dense {1e3 * (t1 - t0):.3f} ms, "
-        f"traceback_dense {1e3 * (t2 - t1):.3f} ms (torch, one run)")
+    say(f"phase 3 graph dense route simple: the graph kernels' bucket (maxd {maxd}), "
+        f"bp/best_j/best_i/raw/emit/done exact against the plain versions, "
+        f"emit/best_j/best_i/raw equal to the graph kernels'; graph_dp_dense "
+        f"{r['dp_ms']:.3f} ms, graph_traceback_dense {r['tb_ms']:.3f} ms; plain "
+        f"poa_dp_dense {r['plain_dp_ms']:.3f} ms, traceback_dense "
+        f"{r['plain_tb_ms']:.3f} ms (one run)")
+
+
+# the dense route's modes (tests/test_torch_graph_dense.py CASES): random
+# column weights, insertion budgets, a random substitution matrix
+DENSE_MODES = {
+    "simple": (False, False, False), "weighted": (True, False, False),
+    "forbid": (False, True, False), "subst": (False, False, True),
+    "subst_forbid": (True, True, True),
+}
+# the batch the modes other than simple and forbid run at (their plain
+# versions take seconds a mode)
+DENSE_SMALL_B = 32
+
+
+def phase_dense_kernels(dev, ddb) -> dict:
+    """The dense route's kernels on a bucket that takes the route: 128
+    family graphs of phase 18's reference (one reference in 20 carries
+    a 48-base insertion, so each family holds two such members) and 128
+    full-length queries, N = 4096, M = 1536: in the simple and forbid
+    modes at B = 128, timed, with launch plans and (simple) the bound;
+    all five modes at B = 32; each exact against the plain versions."""
+    import torch
+
+    from sina_tpu_torch.ops import align_kernel as ak
+    from sina_tpu_torch.ops.align_kernel import DpParams
+
+    fg = family_graphs(ddb, seed=37)
+    maxd = fg["maxd"]
+    if maxd < 32:
+        raise AssertionError(f"phase 18's families give a largest predecessor distance "
+                             f"of {maxd}: the bucket does not take the dense route")
+    d = {k: a.to(dev) for k, a in fg["ops"].items()}
+    rng = np.random.default_rng(101)
+    width = fg["width"]
+    rand_cw = torch.from_numpy(rng.uniform(0.5, 2.0, (B_MAIN, width)).astype(np.float32)).to(dev)
+    ones = torch.ones((B_MAIN, width), dtype=torch.float32, device=dev)
+    subst = torch.from_numpy(rng.uniform(-2, 2, (B_MAIN, 4, 4)).astype(np.float32)).to(dev)
+    budget = fg["budget"].to(dev)
+
+    def inputs(mode: str, B: int):
+        weights, forbid, matrix = DENSE_MODES[mode]
+        return ((rand_cw if weights else ones)[:B], budget[:B] if forbid else None,
+                subst[:B] if matrix else None)
+
+    params = DpParams()
+    out = {}
+    for mode in ("simple", "forbid"):
+        cw, max_ins, sm = inputs(mode, B_MAIN)
+        r = dense_check(f"{mode} B={B_MAIN}", d, cw, max_ins, sm, params, maxd, timed=True)
+        plan = ak.graph_dp_dense_plan(M_MAIN, max_ins is not None, dev)
+        ring_mb = B_MAIN * (maxd + 1) * plan["ring_row"] * 4 / 2**20
+        aligned = int((r["emit"] >= 0).sum(dim=1).min())
+        say(f"phase 3 graph_dp_dense {mode}: B={B_MAIN} N={N_GRAPH} M={M_MAIN} maxd={maxd} "
+            f"(a ring of {maxd + 1} rows a query, {ring_mb:.1f} MB) bp/best_j/best_i/raw "
+            f"exact; kernel {r['dp_ms']:.3f} ms, plain {r['plain_dp_ms']:.3f} ms (one "
+            f"run); launch plan {plan}")
+        say(f"phase 3 graph_traceback_dense {mode}: emit/done exact (fewest bases emitted "
+            f"in a row: {aligned}); kernel {r['tb_ms']:.3f} ms warm ({TB_REPS} launches "
+            f"on one plane), {r['tb_cold_ms']:.3f} ms one launch alone cold (L2 flushed "
+            f"by writing {FLUSH_BYTES >> 20} MB before it); plain {r['plain_tb_ms']:.3f} "
+            f"ms (one run); launch plan {ak.graph_traceback_dense_plan(dev)}")
+        if mode != "simple":
+            continue
+        # the operands, the uint16 bp plane and the end cells (best_j
+        # and best_i int64, raw f32); the instructions of each query's
+        # cells (its graph's real nodes x its length), of the
+        # predecessor slots its real nodes probe, of its real nodes and
+        # of its end nodes' cells
+        n_real, qlen = d["n_real"].long(), d["qlen"].long()
+        real = torch.arange(N_GRAPH, device=dev)[None, :] < n_real[:, None]
+        npred = (d["preds"] >= 0).sum(dim=2)
+        n_end = (d["is_end"] & real).sum(dim=1)
+        counts = (int((n_real * qlen).sum()), int(((npred * real).sum(dim=1) * qlen).sum()),
+                  int(n_real.sum()), int((n_end * qlen).sum()))
+        per = (DENSE_INSTS_PER_CELL, GRAPH_INSTS_PER_PRED_CELL, GRAPH_INSTS_PER_NODE,
+               GRAPH_INSTS_PER_END_CELL)
+        insts = tuple(sum(n * p[k] for n, p in zip(counts, per)) for k in (0, 1))
+        bp = r["got"][0]
+        b = bound(sum(t.numel() * t.element_size() for t in (*d.values(), cw))
+                  + bp.numel() * bp.element_size() + 20 * B_MAIN, insts=insts)
+        tb = traceback_bound(r["emit"], 2)
+        out["graph_dp_dense"] = {"max_abs_err": r["max_abs_err"], "ms": r["dp_ms"],
+                                 "plain_ms": r["plain_dp_ms"], **b, "library_ms": None}
+        out["graph_traceback_dense"] = {
+            "max_abs_err": r["emit_err"], "ms": r["tb_ms"],
+            "plain_ms": r["plain_tb_ms"], **tb, "library_ms": None}
+        say(f"phase 3 graph dense bounds (simple): graph_dp_dense {b['bound_ms']:.3f} ms "
+            f"({b['bound_by']}; {counts[0]} cells, {counts[1]} predecessor probes, "
+            f"{insts[0]} instructions, {insts[1]} integer; the bp plane alone "
+            f"{1e3 * bp.numel() * 2 / HBM_BYTES_PER_S:.3f} ms), graph_traceback_dense "
+            f"{tb['bound_ms']:.5f} ms ({tb['bound_by']})")
+        del r, bp
+        torch.cuda.empty_cache()
+    small = {k: a[:DENSE_SMALL_B] for k, a in d.items()}
+    times = []
+    for mode in DENSE_MODES:
+        r = dense_check(f"{mode} B={DENSE_SMALL_B}", small, *inputs(mode, DENSE_SMALL_B),
+                        params, maxd)
+        times.append(f"{mode} {r['plain_dp_ms'] + r['plain_tb_ms']:.0f}")
+    say(f"phase 3 graph dense route, five modes at B={DENSE_SMALL_B} (N={N_GRAPH}, "
+        f"M={M_MAIN}, maxd {maxd}): bp/best_j/best_i/raw/emit/done exact in each; plain "
+        f"versions' ms (one run) {', '.join(times)}")
+    del d, small
+    torch.cuda.empty_cache()
+    phase_dense_long(dev, ddb)
+    return out
+
+
+def phase_dense_long(dev, ddb) -> None:
+    """The dense route's kernels on the graph engine's longer bucket:
+    32 family graphs of phase 18's reference and 32 queries longer than
+    1536, N = 4096, M = 2048, in the simple and forbid modes, exact
+    against the plain versions.  At M = 2048 the DP runs 4 lanes a
+    thread in 512 threads, its largest block, with every warp's slot of
+    the block scan and of the end-cell reduction in use."""
+    import torch
+
+    from sina_tpu_torch.ops import align_kernel as ak
+    from sina_tpu_torch.ops.align_kernel import DpParams
+
+    fg = family_graphs(ddb, seed=43, B=DENSE_SMALL_B, M=M_LONG)
+    maxd = fg["maxd"]
+    if maxd < 32:
+        raise AssertionError(f"the M = {M_LONG} bucket's largest predecessor distance is "
+                             f"{maxd}: it does not take the dense route")
+    d = {k: a.to(dev) for k, a in fg["ops"].items()}
+    cw = torch.ones((DENSE_SMALL_B, fg["width"]), dtype=torch.float32, device=dev)
+    params = DpParams()
+    times = []
+    for mode, max_ins in (("simple", None), ("forbid", fg["budget"].to(dev))):
+        plan = ak.graph_dp_dense_plan(M_LONG, max_ins is not None, dev)
+        if (plan["lanes"], plan["threads"]) != (4, 512):
+            raise AssertionError(f"graph_dp_dense at M = {M_LONG}: plan {plan}, not 4 lanes "
+                                 f"in 512 threads")
+        r = dense_check(f"{mode} B={DENSE_SMALL_B} M={M_LONG}", d, cw, max_ins, None, params,
+                        maxd, timed=True)
+        times.append(f"{mode}: graph_dp_dense {r['dp_ms']:.3f} ms, graph_traceback_dense "
+                     f"{r['tb_ms']:.3f} ms, plain {r['plain_dp_ms']:.0f} + "
+                     f"{r['plain_tb_ms']:.0f} ms (one run), plan {plan}")
+        del r
+    say(f"phase 3 graph dense route, the longer bucket: B={DENSE_SMALL_B} N={N_GRAPH} "
+        f"M={M_LONG} maxd={maxd}, queries of {int(d['qlen'].min())}-{int(d['qlen'].max())} "
+        f"nt; bp/best_j/best_i/raw/emit/done exact in simple and forbid mode; "
+        f"{'; '.join(times)}")
+    del d
+    torch.cuda.empty_cache()
 
 
 _STAMP = re.compile(r"aligned_slv=\d{4}-\d\d-\d\d \d\d:\d\d:\d\d")
@@ -1841,6 +2093,96 @@ def phase_dryrun(dev) -> None:
         f"{launches}")
 
 
+def make_indel_db():
+    """Phase 18's reference: 20,000 references at width 50,000 (seed
+    4321), one in 20 carrying a 48-base insertion that the others skip
+    (testing.with_long_insertion); made before phase 3, whose dense
+    route check takes its families.  Returns it with its seconds."""
+    from sina_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    db = testing.with_long_insertion(
+        testing.make_reference_large(N_INDEL_REFS, n_core=1450, width=WIDTH, seed=4321),
+        INDEL_LEN, INDEL_EVERY, seed=4321)
+    return db, time.perf_counter() - t0
+
+
+def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, list, object]:
+    """Phase 18: the graph engine on phase 18's reference, whose families
+    carry long insertions: 384 full-length queries in three batches of
+    128 (the first warms up) through famfinder (as phase 5's) and
+    AlignerConfig(engine="graph").  Every graph bucket must take the
+    dense route: graph_dense_route and the two dense kernels' launches
+    equal the bucket count, and the graph kernels never launch."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
+    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.timing import _registry, get_timer, reset_all
+
+    t0 = time.perf_counter()
+    queries = [testing.unaligned_copy(q) for q in
+               testing.make_queries(ddb, n=N_INDEL_QUERIES, seed=41, branch_len=0.7)]
+    pristine = [testing.unaligned_copy(q) for q in queries[:16]]
+    finder = FamFinder(ddb, FamFinderConfig(
+        fs_min=40, fs_max=40, fs_full_len=min(1400, 1450 - 100), fs_req_gaps=1), dev)
+    finder._matrix()
+    torch.cuda.synchronize()
+    say(f"phase 18 setup: {time.perf_counter() - t0 + t_ddb:.1f}s (reference "
+        f"{t_ddb:.1f}s): {len(ddb)} references at width {ddb.width}, one in "
+        f"{INDEL_EVERY} with a {INDEL_LEN}-base insertion")
+    batches = [queries[i:i + B_MAIN] for i in range(0, N_INDEL_QUERIES, B_MAIN)]
+    acfg = AlignerConfig(engine="graph")
+    kernels.reset_launches()
+    reset_all()
+    t0 = time.perf_counter()
+    aligned = _run_batches(finder, batches[:1], acfg, dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    buckets = get_timer("GraphDP").counts["launch"]
+    reset_all()
+    t0 = time.perf_counter()
+    aligned += _run_batches(finder, batches[1:], acfg, dev)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    buckets += get_timer("GraphDP").counts["launch"]
+    shapes = {k: n for k, n in get_timer("GraphDP").counts.items() if k.startswith("bucket ")}
+    n_steady = N_INDEL_QUERIES - B_MAIN
+    for name, t in _registry.items():
+        say(f"  timings {name}: {t}")
+    out = tmp / "indel.fasta"
+    fasta_text([a for a in aligned if a is not None], out)
+    n_ok = check_records(out, queries, ddb.width)
+    if n_ok < 0.95 * N_INDEL_QUERIES:
+        raise AssertionError(f"phase 18: only {n_ok} of {N_INDEL_QUERIES} queries aligned")
+    missing = [k for k in DENSE_ROUTE_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the dense route's path: {missing}")
+    counted = {k: launches[k] for k in ("graph_dense_route", "graph_dp_dense",
+                                        "graph_traceback_dense")}
+    if set(counted.values()) != {buckets} or launches["graph_dp"] or launches["graph_traceback"]:
+        raise AssertionError(f"phase 18: {buckets} graph buckets, but {counted}, graph_dp "
+                             f"{launches['graph_dp']}: not every bucket took the dense route")
+    say(f"phase 18 long-insertion path: {n_ok}/{N_INDEL_QUERIES} aligned, width "
+        f"{ddb.width}, bases preserved; all {buckets} graph buckets on the dense route; "
+        f"warmup batch {t_warm:.2f}s; steady {n_steady} seqs in {t_steady:.3f}s = "
+        f"{n_steady / t_steady:.2f} seq/s on {gpu_line()}; steady buckets (N x M: "
+        f"queries) {shapes}; launches {launches}")
+    busy, wall, per = device_busy(lambda: _run_batches(finder, batches[1:], acfg, dev))
+    if busy > 0:
+        say(f"phase 18 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
+        for ms, name in per[:8]:
+            say(f"  device {ms:9.3f} ms  {name[:90]}")
+    else:
+        say("phase 18 device busy: not measured (the profiler recorded "
+            "no device activity)")
+    return launches, aligned[:16], pristine, finder
+
+
 def main() -> int:
     import torch
 
@@ -1854,8 +2196,10 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     db, t_db = make_db()
+    ddb, t_ddb = make_indel_db()
     timing = phase_kernels(dev, db)
     timing.update(phase_graph_kernels(dev))
+    timing.update(phase_dense_kernels(dev, ddb))
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
         phase_cli(tmp)
@@ -1878,8 +2222,12 @@ def main() -> int:
         del mfinder
         phase_multihost(tmp)
         phase_dryrun(dev)
+        dlaunches, dgpu16, dqueries16, dfinder = phase_indel_path(dev, tmp, ddb, t_ddb)
+        phase_cpu_parity(dfinder, dgpu16, dqueries16, tmp, AlignerConfig(engine="graph"),
+                         "phase 18")
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
+    launches.update({k: dlaunches[k] for k in ("graph_dp_dense", "graph_traceback_dense")})
     launches["kmer_score_dense"] = dense_launches
     launches["profile_dp_forbid"] = flaunches["profile_dp_forbid"]
     record = {"kernels": [

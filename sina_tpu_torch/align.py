@@ -27,7 +27,7 @@ from .comparator import Comparator, IUPAC_OPTIMISTIC, COVER_OVERLAP
 from .sequence import Sequence
 from .timing import get_timer
 
-from .ops.graph import LinearGraph
+from .ops.graph import LinearGraph, build_graph
 
 from .ops import align_kernel as ak
 from .ops import kernels
@@ -121,6 +121,10 @@ def _now() -> str:
     return datetime.datetime.now(datetime.timezone.utc).strftime(
         "%Y-%m-%d %H:%M:%S"
     )
+
+
+class AlignmentFailure(Exception):
+    pass
 
 
 # Normalized base-string cache for try_copy_alignment: family members
@@ -783,6 +787,26 @@ def align_finalize(state) -> list[Sequence | None]:
     return results
 
 
+def align_batch(
+    queries: list[Sequence],
+    families: list[list[tuple[float, Sequence]]],
+    cfg: AlignerConfig | None = None,
+    col_weights_list: list[np.ndarray | None] | None = None,
+    astats_names: list[str] | None = None,
+    node_bucket: int = 512,
+    query_bucket: int = 256,
+    device: torch.device | str = "cuda",
+) -> list[Sequence | None]:
+    """Align a batch of queries, each against its own family
+    (synchronous dispatch+finalize; sina_tpu/align.py:817-833)."""
+    return align_finalize(
+        align_dispatch(
+            queries, families, cfg, col_weights_list, astats_names,
+            node_bucket, query_bucket, device=device,
+        )
+    )
+
+
 def align_sequence(
     query: Sequence,
     family: list[tuple[float, Sequence]],
@@ -798,6 +822,66 @@ def align_sequence(
     return align_finalize(align_dispatch(
         [query], [list(family)], cfg, [col_weights], [astats_name], device=device,
     ))[0]
+
+
+def _max_pred_distance(graph: LinearGraph) -> int:
+    """The largest topological distance j - p from a node j to one of
+    its predecessors p (0 for a graph without edges)."""
+    v = graph.preds >= 0
+    if not v.any():
+        return 0
+    return int((np.arange(graph.n_nodes, dtype=np.int32)[:, None] - graph.preds)[v].max())
+
+
+def align_sequence_host_traceback(
+    query: Sequence,
+    family: list[tuple[float, Sequence]],
+    cfg: AlignerConfig | None = None,
+    device: torch.device | str = "cuda",
+) -> Sequence | None:
+    """Graph-mode alignment of one query by the dense DP on `device`
+    (ops/align_kernel.graph_dp_dense) and the host walk
+    (ops/align_kernel.traceback): the oracle of the device walks
+    (sina_tpu/align.py:1377-1427)."""
+    cfg = cfg or AlignerConfig()
+    log: list[str] = []
+
+    copied, family = try_copy_alignment(query, family, cfg, log)
+    if copied is not None:
+        copied.set_attr("align_log_slv", " ".join(log))
+        return copied
+    if not family:
+        return None
+
+    refs = [it[1] for it in family]
+    graph = build_graph(refs, cfg.fs_weight)
+    cw = np.ones(graph.width + 2, dtype=np.float32)
+    q = query.copy()
+    if cfg.lowercase != LOWERCASE_ORIGINAL:
+        q.upper_case_all()
+
+    n, m = graph.n_nodes, len(q.masks)
+
+    def up(a, dtype):
+        """One query's array as a batch of one on `device`."""
+        return torch.from_numpy(np.asarray(a, dtype=dtype)[None].copy()).to(device)
+
+    bp, bj, bi, raw = ak.graph_dp_dense(
+        up(graph.pos, np.int32), up(graph.mask, np.uint8),
+        up(graph.weight, np.float32), up(graph.preds, np.int32),
+        up(graph.is_start, bool), up(graph.is_end, bool),
+        up(q.masks, np.uint8), up(m, np.int32), up(n, np.int32),
+        up(cw, np.float32), cfg.dp_params(), maxd=_max_pred_distance(graph),
+    )
+    bj, bi, raw = int(bj[0]), int(bi[0]), float(raw[0])
+    pairs, head = ak.traceback(
+        bp[0].cpu().numpy(), bj, bi, graph.pos, graph.preds, graph.is_start,
+    )
+    return finish_alignment(
+        query, q, graph.pos, graph.weight, graph.width,
+        pairs, head, bj, bi, raw,
+        cfg, cw, refs, astats_name="", log=log,
+    )
 
 
 class _StackArena:
@@ -856,12 +940,14 @@ def _dispatch_graph_bucket(
 ):
     """Stack one bucket's graphs and launch the graph DP and its
     traceback (sina_tpu/align.py:956-1131); returns the finalize
-    thunk.  A bucket whose largest predecessor distance fits the
-    kernel's 5-bit fields (< 32, every MSA-derived graph measured)
-    launches the two kernels at once, without chunking; a larger one
-    takes the dense route, chosen by shape as the reference chooses
-    it.  Device work is queued without synchronising; the thunk
-    fetches it."""
+    thunk.  A bucket whose largest predecessor distance fits the graph
+    kernel's 5-bit fields (< 32: true of the families testing's
+    generators make, unless with_long_insertion adds to them) launches the graph DP and its traceback at once,
+    without chunking; a larger one (any family member with an indel of
+    about 32 columns against relatives with bases there makes one)
+    launches the dense DP and its traceback, chosen by shape as the
+    reference chooses its core.  Device work is queued without
+    synchronising; the thunk fetches it."""
     from .ops.graph_kernel import (
         check_walks, graph_dp, graph_traceback, pack_graph_host,
         pick_k_ring,
@@ -947,15 +1033,11 @@ def _dispatch_graph_bucket(
             end_s[b, :n] = g.is_end
             if maxi_s is not None:
                 maxi_s[b, :n] = g.max_insert
-            v = g.preds >= 0
-            if v.any():
-                d = (
-                    np.arange(n, dtype=np.int32)[:, None] - g.preds
-                )[v].max()
-                maxd = max(maxd, int(d))
-    # the kernel when every predecessor is nearby in topological order
-    # (always true for MSA-derived POA graphs): 0 < maxd < 32, as the
-    # reference's window test (sina_tpu/align.py:1051)
+            maxd = max(maxd, _max_pred_distance(g))
+    # the graph kernel when every predecessor is nearby in topological
+    # order: 0 < maxd < 32, the reference's window test
+    # (sina_tpu/align.py:1051); true of the repo's generated families,
+    # not of one with a member whose indel spans about 32 columns
     k_ring = pick_k_ring(maxd) if maxd > 0 else 0
 
     def up(a):
@@ -990,13 +1072,13 @@ def _dispatch_graph_bucket(
             emit, done = graph_traceback(bp, bj, bi, flags_d)
         else:
             preds_d, start_d = up(preds_s), up(start_s)
-            bp, bj, bi, raw = ak.poa_dp_dense(
+            bp, bj, bi, raw = ak.graph_dp_dense(
                 up(pos_s), up(mask_s), up(weight_s), preds_d, start_d,
                 up(end_s), up(qm), up(ql), up(nr), up(cw_pad), params,
                 max_insert=None if maxi_s is None else up(maxi_s),
-                subst=None if subst is None else up(subst),
+                subst=None if subst is None else up(subst), maxd=maxd,
             )
-            emit, done = ak.traceback_dense(bp, bj, bi, preds_d, start_d)
+            emit, done = ak.graph_traceback_dense(bp, bj, bi, preds_d, start_d)
         # one (B, M+4) int32 result = one device-to-host copy
         out = torch.cat(
             [emit, bj.to(torch.int32)[:, None], bi.to(torch.int32)[:, None],

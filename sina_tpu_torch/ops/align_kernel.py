@@ -2,30 +2,43 @@
 (sina_tpu/ops/align_kernel.py:47-63), and the dense-predecessor route
 of the graph engine.
 
-The dense route is the port of the reference's XLA graph core
-poa_dp_costs with its three cost set-ups (poa_dp, poa_dp_forbid,
-poa_dp_subst), _windowed_min and traceback_device
-(sina_tpu/ops/align_kernel.py:70-229, 231-258, 409-545, 549-606,
-616-714), as batched torch code on the bucket's device.  The reference
-runs a bucket whose largest predecessor distance is 32 or more through
-it on every backend (sina_tpu/align.py:1051, 1084-1105): the graph
-kernel's 5-bit distance fields cannot carry such distances.  The
-dispatcher chooses it by shape before any launch; it is not a
-fallback for a kernel that failed.  Its backpointers are slot-coded:
+The dense route ports the reference's XLA graph core poa_dp_costs with
+its three cost set-ups (poa_dp, poa_dp_forbid, poa_dp_subst),
+_windowed_min and traceback_device (sina_tpu/ops/align_kernel.py:70-229,
+231-258, 409-545, 549-606, 616-714).  ``graph_dp_dense`` launches
+csrc/graph_dense.cu's DP for CUDA tensors and runs the plain version
+``poa_dp_dense`` (batched torch code, a loop over the nodes) for CPU
+tensors; ``graph_traceback_dense`` launches its walk or runs
+``traceback_dense``.  The reference runs a bucket whose largest
+predecessor distance is 32 or more through this core on every backend
+(sina_tpu/align.py:1051, 1084-1105): the graph kernel's 5-bit distance
+fields cannot carry such distances.  The families of testing's
+generators stay below 32 (8-18), but one family member with an indel
+of about 32 columns against relatives that have bases there reaches
+it (testing.with_long_insertion makes such members).  The dispatcher
+chooses the route by shape before any launch; it is not a fallback
+for a kernel that failed.  Its backpointers are slot-coded:
 
   bits 0-1  V choice: 0=edge, 1=match, 2=deletion, 3=insertion
   bits 2-4  match predecessor slot
   bits 5-7  deletion predecessor slot
   bit  8    deletion opened here
   bit  9    insertion opened here
+
+The host walk ``traceback`` and ``emit_to_pairs`` are the JAX
+package's own (sina_tpu/ops/align_kernel.py:608-613, 717-795), the
+oracle of the device walk.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import kernels
 
 BIG = 1e6
 
@@ -114,6 +127,47 @@ def _dense_sub(j, mask, qm, subw, match, mismatch, sq, pq):
     return (numer / denom) * subw[:, j : j + 1]
 
 
+def node_costs(pos, weight, col_weights, subst, params: DpParams) -> dict[str, torch.Tensor]:
+    """Per-node scalars of the graph DPs (graph_pallas.py:547-580; the
+    dense core's poa_dp, poa_dp_forbid and poa_dp_subst compute the same
+    values, align_kernel.py:70-229), as (B, N) tensors on the operands'
+    device: subw (substitution weight), dgo, dge (deletion open/extend),
+    gio, gie (insertion open/extend), in the reference's f32
+    operations."""
+    f32 = torch.float32
+    dev = pos.device
+    go = torch.tensor(params.gap_open, dtype=f32, device=dev)
+    ge = torch.tensor(params.gap_ext, dtype=f32, device=dev)
+    W = col_weights.shape[1]
+    p = pos.long()
+    wcol = torch.gather(col_weights, 1, p)
+    if subst is not None:
+        # scoring_scheme_matrix: node weights not applied; all gap
+        # costs use the node's own column weight (poa_dp_subst)
+        return dict(subw=wcol, dgo=go * wcol, dge=ge * wcol,
+                    gio=go * wcol, gie=ge * wcol)
+    wins = torch.gather(col_weights, 1, torch.clamp(p + 1, max=W - 1))
+    return dict(subw=wcol * weight, dgo=go * wcol, dge=ge * wcol,
+                gio=go * wins, gie=ge * wins)
+
+
+def _repeats_previous(planes, nopred) -> list[bool]:
+    """same[j]: in every query, node j and node j-1 have no predecessors
+    (`nopred`, (B, N) bool) and equal per-node inputs (`planes`, (B, N)
+    tensors: costs, mask, flags, budget), so node j's rows and
+    backpointers equal node j-1's and no end candidate changes (strict
+    <).  A bucket pads its graphs with such nodes up to its node bucket;
+    copying their rows keeps both plain graph DPs' time to the real
+    nodes (PERF.md)."""
+    N = nopred.shape[1]
+    same = [False] * N
+    if N > 1:
+        tab = torch.stack([x.to(torch.float64) for x in planes], dim=2)
+        rep = (tab[:, 1:] == tab[:, :-1]).all(dim=2) & nopred[:, 1:] & nopred[:, :-1]
+        same[1:] = rep.all(dim=0).cpu().tolist()
+    return same
+
+
 def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
                  n_real, col_weights, params: DpParams, max_insert=None,
                  subst=None, return_lattice: bool = False):
@@ -138,23 +192,16 @@ def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
     def c(v):
         return torch.tensor(v, dtype=f32, device=dev)
 
-    go, ge, big, one = c(params.gap_open), c(params.gap_ext), c(BIG), c(1.0)
+    big, one = c(BIG), c(1.0)
     match, mismatch = c(params.match), c(params.mismatch)
-    W = col_weights.shape[1]
-    p = pos.long()
-    wcol = torch.gather(col_weights, 1, p)
+    costs = node_costs(pos, weight, col_weights, subst, params)
+    subw, del_open, del_ext, ins_open, ins_ext = (
+        costs[k] for k in ("subw", "dgo", "dge", "gio", "gie"))
     qm = qmask.long()
     nmask = mask.long()
     if subst is None:
-        wins = torch.gather(col_weights, 1, torch.clamp(p + 1, max=W - 1))
-        subw = wcol * weight
-        del_open, del_ext = go * wcol, ge * wcol
-        ins_open, ins_ext = go * wins, ge * wins
         sq = pq = None
     else:
-        subw = wcol
-        del_open, del_ext = go * wcol, ge * wcol
-        ins_open, ins_ext = go * wcol, ge * wcol
         bits_q = [((qm >> s) & 1).to(f32) for s in range(4)]
         pq = torch.zeros((B, M), dtype=f32, device=dev)
         for r in range(4):
@@ -183,8 +230,16 @@ def poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
     b2j = torch.zeros(B, dtype=i64, device=dev)
     b2i = torch.zeros(B, dtype=i64, device=dev)
     bigcol = big.expand(B, P, 1)
+    same = _repeats_previous(
+        [subw, del_open, del_ext, ins_open, ins_ext, nmask, start, endv, valid]
+        + ([max_insert] if max_insert is not None else []), (predl < 0).all(dim=2))
 
     for j in range(N):
+        if same[j]:                     # a repeated padding node
+            BP[:, j] = BP[:, j - 1]
+            V[:, j + 1] = V[:, j]
+            D[:, j + 1] = D[:, j]
+            continue
         pj = predl[:, j] + 1                                  # 0 = virtual BIG row
         ok = (predl[:, j] >= 0)[:, :, None]                    # (B, P, 1)
         idx = pj[:, :, None].expand(B, P, M)
@@ -337,3 +392,235 @@ def traceback_dense(bp, best_j, best_i, preds, is_start):
                                                     torch.where(is_ins, ins_state, state))))
         j, i = nj, ni_
     return emit[:, :M].contiguous(), (state == _S_DONE).to(torch.int32)
+
+
+# predecessor slots a node record of csrc/graph_dense.cu holds (the
+# slot-coded backpointers' 3-bit fields)
+MAX_SLOTS = 8
+
+
+def dense_node_table(pos, mask, weight, preds, is_start, is_end, n_real,
+                     col_weights, params: DpParams, max_insert=None,
+                     subst=None) -> torch.Tensor:
+    """The dense kernel's (B, N, 16) int32 per-node table, one 64-byte
+    record per node: subw, deletion open and extend, insertion open and
+    extend (float32 bits, the plain version's own values from
+    node_costs), mask | flags << 8 (flags: 1 start, 2 end, 4 real
+    node), the insertion budget, 0, and the node's predecessor slots,
+    -1 past P."""
+    i32 = torch.int32
+    N = pos.shape[1]
+    costs = node_costs(pos, weight, col_weights, subst, params)
+    valid = torch.arange(N, device=pos.device)[None, :] < n_real.long()[:, None]
+    flags = is_start.to(i32) | (is_end.to(i32) << 1) | (valid.to(i32) << 2)
+    mf = mask.to(i32) | (flags << 8)
+    budget = max_insert.to(i32) if max_insert is not None else torch.zeros_like(mf)
+    slots = F.pad(preds.to(i32), (0, MAX_SLOTS - preds.shape[2]), value=-1)
+    cols = ([costs[k].contiguous().view(i32) for k in ("subw", "dgo", "dge", "gio", "gie")]
+            + [mf, budget, torch.zeros_like(mf)])
+    return torch.cat([torch.stack(cols, dim=2), slots], dim=2).contiguous()
+
+
+def graph_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
+                   n_real, col_weights, params: DpParams, max_insert=None,
+                   subst=None, *, maxd: int):
+    """The dense graph DP; see poa_dp_dense for the contract (pos int32,
+    mask uint8, weight f32, preds int32, is_start/is_end bool, qmask
+    uint8, qlen/n_real int32, col_weights f32, max_insert int32, subst
+    f32).  CPU tensors take the plain version; CUDA tensors launch
+    csrc/graph_dense.cu (or raise), whose ring holds maxd + 1 node rows
+    of each query in a global scratch: maxd must be at least the
+    bucket's largest predecessor distance j - p (the dispatcher's).  A
+    predecessor farther back fails a device-side assert in the kernel,
+    which the next synchronising call raises as a RuntimeError (and
+    which leaves the process's CUDA context unusable, as any CUDA
+    kernel assert does)."""
+    if qmask.device.type == "cpu":
+        return poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask,
+                            qlen, n_real, col_weights, params, max_insert, subst)
+    dev = qmask.device
+    for name, t, dtype, ndim in (
+        ("pos", pos, torch.int32, 2), ("mask", mask, torch.uint8, 2),
+        ("weight", weight, torch.float32, 2), ("preds", preds, torch.int32, 3),
+        ("is_start", is_start, torch.bool, 2), ("is_end", is_end, torch.bool, 2),
+        ("qmask", qmask, torch.uint8, 2), ("qlen", qlen, torch.int32, 1),
+        ("n_real", n_real, torch.int32, 1), ("col_weights", col_weights, torch.float32, 2),
+    ):
+        kernels.require_cuda(name, t, dtype, dev, ndim)
+    if max_insert is not None:
+        kernels.require_cuda("max_insert", max_insert, torch.int32, dev, 2)
+    if subst is not None:
+        kernels.require_cuda("subst", subst, torch.float32, dev, 3)
+    B, N = pos.shape
+    M = qmask.shape[1]
+    P = preds.shape[2]
+    for name, t in (("mask", mask), ("weight", weight), ("is_start", is_start),
+                    ("is_end", is_end)) + ((("max_insert", max_insert),)
+                                           if max_insert is not None else ()):
+        if tuple(t.shape) != (B, N):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, N)}")
+    if preds.shape[:2] != (B, N) or not 1 <= P <= MAX_SLOTS:
+        raise ValueError(f"preds must be (B, N, P) with 1 <= P <= {MAX_SLOTS}, "
+                         f"got {tuple(preds.shape)}")
+    if (tuple(qmask.shape) != (B, M) or tuple(qlen.shape) != (B,)
+            or tuple(n_real.shape) != (B,) or col_weights.shape[0] != B):
+        raise ValueError("qmask must be (B, M), qlen and n_real (B,), col_weights (B, W)")
+    if subst is not None and tuple(subst.shape) != (B, 4, 4):
+        raise ValueError("subst must be (B, 4, 4)")
+    K = int(maxd) + 1
+    if not 1 <= K <= N + 1:
+        raise ValueError(f"the ring of maxd + 1 = {K} node rows must hold 1 to N + 1 = {N + 1}")
+    if not 0 < M <= 16384:
+        raise ValueError(f"graph_dp_dense kernel needs 1 <= M <= 16384 (M={M})")
+    aspace = max_insert is not None
+    cfg = graph_dp_dense_plan(M, aspace, dev)
+    table = dense_node_table(pos, mask, weight, preds, is_start, is_end, n_real,
+                             col_weights, params, max_insert, subst)
+    smat = (subst.reshape(B, 16).contiguous() if subst is not None
+            else torch.zeros((B, 16), dtype=torch.float32, device=dev))
+    bp = torch.empty((B, N, M), dtype=torch.int16, device=dev)
+    best = torch.empty((B, 8), dtype=torch.float32, device=dev)
+    ring = torch.empty((B, K * cfg["ring_row"]), dtype=torch.float32, device=dev)
+    kernels.launch(
+        "graph_dp_dense", kernels.lib().sina_graph_dp_dense,
+        table.data_ptr(), qmask.data_ptr(), qlen.data_ptr(), smat.data_ptr(),
+        bp.data_ptr(), best.data_ptr(), ring.data_ptr(), B, N, M, K,
+        int(aspace), int(subst is not None), params.match, params.mismatch,
+        device=dev,
+    )
+    # (v1, j1, v2, j2, i2): the two end candidates, decoded as
+    # poa_dp_dense decodes its running minima
+    v1, j1, v2, j2, i2 = (best[:, k] for k in range(5))
+    use2 = v2 < v1                                     # strict (mesh.h:588)
+    best_j = torch.where(use2, j2, j1).long()
+    best_i = torch.where(use2, i2.long(), qlen.long() - 1)
+    return bp, best_j, best_i, torch.where(use2, v2, v1)
+
+
+def graph_dp_dense_plan(M: int, aspace: bool,
+                        device: torch.device | None = None) -> dict:
+    """The dense DP kernel's launch plan on `device` (needs the card):
+    lanes a thread, threads, floats of a ring row (a query's scratch is
+    maxd + 1 of them), dynamic and static shared memory bytes a block,
+    registers a thread."""
+    out = kernels.plan(kernels.lib().sina_graph_dp_dense_plan, M, int(aspace), n=6,
+                       device=device)
+    keys = ("lanes", "threads", "ring_row", "dyn_smem", "static_smem", "regs")
+    return dict(zip(keys, out))
+
+
+def graph_traceback_dense(bp, best_j, best_i, preds, is_start):
+    """emit (B, M) int32, the node that consumed each query base (-1 =
+    none), and done (B,) int32; see traceback_dense.  CPU tensors take
+    the plain version; CUDA tensors (bp int16, preds int32, is_start
+    bool) launch csrc/graph_dense.cu's walk (or raise)."""
+    if bp.device.type == "cpu":
+        return traceback_dense(bp, best_j, best_i, preds, is_start)
+    dev = bp.device
+    kernels.require_cuda("bp", bp, torch.int16, dev, 3)
+    kernels.require_cuda("preds", preds, torch.int32, dev, 3)
+    kernels.require_cuda("is_start", is_start, torch.bool, dev, 2)
+    B, N, M = bp.shape
+    P = preds.shape[2]
+    if preds.shape[:2] != (B, N) or tuple(is_start.shape) != (B, N):
+        raise ValueError("preds must be (B, N, P) and is_start (B, N) for bp (B, N, M)")
+    for name, t in (("best_j", best_j), ("best_i", best_i)):
+        if t.device != dev or tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},) on {dev}")
+    bj = best_j.to(torch.int32).contiguous()
+    bi = best_i.to(torch.int32).contiguous()
+    emit = torch.empty((B, M), dtype=torch.int32, device=dev)
+    done = torch.empty(B, dtype=torch.int32, device=dev)
+    kernels.launch(
+        "graph_traceback_dense", kernels.lib().sina_graph_traceback_dense,
+        bp.data_ptr(), bj.data_ptr(), bi.data_ptr(), preds.data_ptr(),
+        is_start.data_ptr(), emit.data_ptr(), done.data_ptr(), B, N, M, P,
+        device=dev,
+    )
+    return emit, done
+
+
+def graph_traceback_dense_plan(device: torch.device | None = None) -> dict:
+    """The dense traceback kernel's launch plan (needs the card):
+    threads a block (one of them walks), static shared memory bytes a
+    block, registers a thread."""
+    out = kernels.plan(kernels.lib().sina_graph_traceback_dense_plan, n=3, device=device)
+    return dict(zip(("threads", "static_smem", "regs"), out))
+
+
+def emit_to_pairs(emit: np.ndarray) -> tuple[list, int]:
+    """Convert a device emission row to ([(node, slave_i)], head)
+    (sina_tpu/ops/align_kernel.py:608-613)."""
+    idx = np.nonzero(emit >= 0)[0]
+    pairs = [(int(emit[i]), int(i)) for i in idx]
+    head = int(idx[0]) if len(idx) else 0
+    return pairs, head
+
+
+def traceback(
+    bp: np.ndarray,
+    best_j: int,
+    best_i: int,
+    node_pos: np.ndarray,
+    preds: np.ndarray,
+    is_start: np.ndarray,
+) -> tuple[list[tuple[int, int]], int]:
+    """Walk one query's packed backpointers on the host
+    (sina_tpu/ops/align_kernel.py:717-795); returns ([(node_or_-1,
+    slave_i)] in left-to-right slave order, head).  node -1 marks
+    left-overhang bases (the walk ended before slave position 0).
+    Inserted bases report the anchor node (they share its column; the
+    NAST shift later spreads them, mesh.h:642-685 semantics)."""
+    def resolve(j: int, i: int) -> int:
+        """Follow deletion-valued cells back to the node where slave
+        base i is actually consumed (the reference's skip-cell logic,
+        mesh.h:648-655, generalised to chained deletions)."""
+        while not (is_start[j] or i == 0):
+            if int(bp[j, i]) & 0x3 != CODE_DEL:
+                break
+            # follow this cell's deletion chain to its opening
+            while True:
+                cell = int(bp[j, i])
+                slot = (cell >> 5) & 0x7
+                opened = (cell >> 8) & 1
+                j = int(preds[j, slot])
+                if opened or is_start[j]:
+                    break
+        return j
+
+    out = []  # (slave_i, node_j) emitted right-to-left
+    j, i = int(best_j), int(best_i)
+    j = resolve(j, i)
+    out.append((i, j))
+    while not (i == 0 or is_start[j]):
+        cell = int(bp[j, i])
+        c = cell & 0x3
+        if c == CODE_EDGE:
+            break  # free start: remaining bases are left overhang
+        if c == CODE_DEL:
+            # reached e.g. after an insertion run whose anchor's value
+            # came from the deletion track: hop back, no emission (the
+            # anchor was already emitted at the insertion node, as in
+            # the reference, mesh.h:664-684)
+            j = resolve(j, i)
+            continue
+        if c == CODE_MATCH:
+            slot = (cell >> 2) & 0x7
+            j = int(preds[j, slot])
+            i -= 1
+            j = resolve(j, i)
+            out.append((i, j))
+        else:  # CODE_INS: run of inserted bases anchored at node j
+            while True:
+                opened = (int(bp[j, i]) >> 9) & 1
+                i -= 1
+                if i < 0:
+                    break
+                out.append((i, j))
+                if opened:
+                    break
+            if i < 0:
+                break
+            # anchor consumed at j; continue main loop from (j, i)
+    head = out[-1][0]  # leftmost emitted slave index
+    return [(j, i) for (i, j) in reversed(out)], head

@@ -34,11 +34,12 @@ from . import kernels
 from .align_kernel import (
     _S_CHAIN, _S_CHAIN_NE, _S_DECIDE, _S_DONE, _S_INS, _S_RESOLVE,
     _S_RESOLVE_NE, BIG, CODE_DEL, CODE_EDGE, CODE_INS, CODE_MATCH, DpParams,
-    _windowed_min,
+    _repeats_previous, _windowed_min, node_costs,
 )
 
-# the kernel's 5-bit distance fields: predecessors at distance >= 32
-# take the dense route (align_kernel.poa_dp_dense)
+# the kernel's 5-bit distance fields: a bucket with a predecessor at
+# distance >= 32 (a family member with an indel of about 32 columns
+# makes one) takes the dense route (align_kernel.graph_dp_dense)
 MAX_DIST = 32
 
 
@@ -101,28 +102,6 @@ def pick_k_ring(maxd: int) -> int:
     return max(2, int(maxd) + 1)
 
 
-def node_costs(pos, weight, col_weights, subst, params: DpParams) -> dict[str, torch.Tensor]:
-    """Per-node scalars of the DP (graph_pallas.py:547-580), as (B, N)
-    tensors on the operands' device: subw (substitution weight), dgo,
-    dge (deletion open/extend), gio, gie (insertion open/extend), in
-    the reference's f32 operations."""
-    f32 = torch.float32
-    dev = pos.device
-    go = torch.tensor(params.gap_open, dtype=f32, device=dev)
-    ge = torch.tensor(params.gap_ext, dtype=f32, device=dev)
-    W = col_weights.shape[1]
-    p = pos.long()
-    wcol = torch.gather(col_weights, 1, p)
-    if subst is not None:
-        # scoring_scheme_matrix: node weights not applied; all gap
-        # costs use the node's own column weight (poa_dp_subst)
-        return dict(subw=wcol, dgo=go * wcol, dge=ge * wcol,
-                    gio=go * wcol, gie=ge * wcol)
-    wins = torch.gather(col_weights, 1, torch.clamp(p + 1, max=W - 1))
-    return dict(subw=wcol * weight, dgo=go * wcol, dge=ge * wcol,
-                gio=go * wins, gie=ge * wins)
-
-
 def _decode_best(best: torch.Tensor, qlen: torch.Tensor):
     """(B, 8) f32 summary (v1, j1, v2, j2, i2) -> best_j, best_i (B,)
     int32 and raw (B,) f32 (graph_pallas.py:629-639)."""
@@ -178,25 +157,6 @@ def _sfac_table(qmask, smat, params: DpParams) -> torch.Tensor:
     return torch.stack(tabs).double()
 
 
-def _repeats_previous(costs, nm4, pb, fl, bud) -> list[bool]:
-    """same[j]: node j and node j-1 have no predecessors and equal
-    inputs in every query, so node j's rows equal node j-1's and no
-    best cell changes (strict <).  Runs of padding nodes are such
-    nodes; the bucket's padding up to a power of two makes them up to
-    half of its nodes, and copying their rows keeps the CPU path's time
-    to the real nodes (PERF.md)."""
-    N = nm4.shape[0]
-    same = [False] * N
-    if N > 1:
-        tab = torch.cat([costs[k].t() for k in ("subw", "dgo", "dge", "gio", "gie")]
-                        + [nm4.to(torch.float32), fl[:, :, 0].to(torch.float32)]
-                        + ([bud[:, :, 0].to(torch.float32)] if bud is not None else []),
-                        dim=1)
-        nopred = (pb[:, :, 0] == 0).all(dim=1)
-        same[1:] = ((tab[1:] == tab[:-1]).all(dim=1) & nopred[1:] & nopred[:-1]).cpu().tolist()
-    return same
-
-
 def _graph_core_plain(costs, mask, predbits, flags, budget, qmask, qlen, smat,
                       params: DpParams, k_ring: int):
     """The DP of _graph_kernel as a loop over the N nodes on (B, M)
@@ -247,7 +207,10 @@ def _graph_core_plain(costs, mask, predbits, flags, budget, qmask, qlen, smat,
     all_d = has.all(dim=1).cpu().numpy()
     probes = [[(int(d), None if all_d[j, d] else ~has[j, :, d, None])
                for d in np.flatnonzero(any_d[j])] for j in range(N)]
-    same = _repeats_previous(costs, nm4, pb, fl, bud)
+    same = _repeats_previous(
+        [costs[k] for k in ("subw", "dgo", "dge", "gio", "gie")]
+        + [mask.to(i32) & 0xF, flags.to(i32)] + ([budget] if aspace else []),
+        predbits == 0)
     has_end = endv.any(dim=1)[:, 0].cpu().tolist()
     any_valid = valid.any(dim=1)[:, 0].cpu().tolist()
     bmax = bud.amax(dim=1)[:, 0].cpu().tolist() if aspace else None

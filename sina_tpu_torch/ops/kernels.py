@@ -33,7 +33,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("kmer_score.cu", "kmer_dense.cu", "profile_dp.cu",
-           "chain_traceback.cu", "graph_dp.cu", "graph_traceback.cu")
+           "chain_traceback.cu", "graph_dp.cu", "graph_traceback.cu",
+           "graph_dense.cu")
 # included by the sources (the DPs' block scan, the tracebacks' window)
 HEADERS = ("dp_scan.cuh", "traceback_window.cuh")
 # --fmad=false: the DPs must keep the reference's f32 rounding (no
@@ -47,10 +48,13 @@ NVCC_FLAGS = (
 launches = {"kmer_score": 0, "kmer_score_dense": 0,
             "profile_dp": 0, "profile_dp_forbid": 0, "chain_traceback": 0,
             "graph_dp": 0, "graph_traceback": 0,
-            # not kernels: graph buckets that took the dense route
-            # (ops/align_kernel.poa_dp_dense), and graph_dp launches whose
-            # ring did not fit shared memory and took the global-ring
-            # route (csrc/graph_dp.cu), counted where chosen
+            "graph_dp_dense": 0, "graph_traceback_dense": 0,
+            # not kernels: graph buckets that took the dense route (a
+            # predecessor 32 or more nodes back, which one family member
+            # with an indel of about 32 columns makes; ops/align_kernel
+            # graph_dp_dense), and graph_dp launches whose ring did not
+            # fit shared memory and took the global-ring route
+            # (csrc/graph_dp.cu), counted where chosen
             "graph_dense_route": 0, "graph_dp_global_ring": 0}
 
 _lib = None
@@ -154,6 +158,14 @@ def lib() -> ctypes.CDLL:
         so.sina_graph_traceback.restype = I
         so.sina_graph_traceback_plan.argtypes = [P, I, P]
         so.sina_graph_traceback_plan.restype = I
+        so.sina_graph_dp_dense.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
+        so.sina_graph_dp_dense.restype = I
+        so.sina_graph_dp_dense_plan.argtypes = [I, I, P]
+        so.sina_graph_dp_dense_plan.restype = I
+        so.sina_graph_traceback_dense.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
+        so.sina_graph_traceback_dense.restype = I
+        so.sina_graph_traceback_dense_plan.argtypes = [P]
+        so.sina_graph_traceback_dense_plan.restype = I
         so.sina_cuda_error_string.argtypes = [I]
         so.sina_cuda_error_string.restype = ctypes.c_char_p
         _lib = so

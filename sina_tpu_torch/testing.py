@@ -454,6 +454,44 @@ def make_queries(
     return out
 
 
+def with_long_insertion(db: ReferenceDb, length: int, every: int,
+                        seed: int) -> ReferenceDb:
+    """`db` with `length` empty columns opened in the middle of the
+    alignment, which one of every `every` references (0, every, 2 *
+    every, ...) fills with random bases, as a family member with a
+    length-variable region or an intervening sequence does in real
+    16S/18S data.  In the POA graph of a family that holds such a
+    member and relatives without it, a node after the site has a
+    predecessor more than `length` nodes back: with length >= 32 its
+    graph takes the dense route.  Works on this module's databases and
+    on the JAX package's alike (it builds its results with the classes
+    of the ones it is given)."""
+    rng = np.random.default_rng(seed)
+    c0 = db.width // 2
+    width = db.width + length
+    seqs = []
+    for k, s in enumerate(db.sequences):
+        pos = s.positions.astype(np.int64)
+        pos = np.where(pos >= c0, pos + length, pos)
+        masks = s.masks.copy()
+        if k % every == 0:
+            at = int(np.searchsorted(pos, c0))
+            pos = np.insert(pos, at, np.arange(c0, c0 + length))
+            masks = np.insert(masks, at, _random_base(rng, length))
+        attrs = dict(s.attrs)
+        if "stop" in attrs:
+            attrs["stop"] = str(len(pos))
+        seqs.append(type(s)(s.name, pos.astype(np.uint32), masks, width, attrs))
+
+    def shift(c: int) -> int:
+        return c + length if c >= c0 else c
+
+    pairs = np.zeros(width if len(db.pairs) else 0, dtype=np.int32)
+    for i in np.flatnonzero(db.pairs):
+        pairs[shift(int(i))] = shift(int(db.pairs[i]))
+    return type(db)(seqs, width, pairs=pairs)
+
+
 def unaligned_copy(seq: Sequence) -> Sequence:
     """Strip alignment information (what a FASTA query looks like)."""
     n = len(seq.positions)

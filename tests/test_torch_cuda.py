@@ -549,17 +549,200 @@ def test_graph_dp_rejects_bad_operands(cuda):
 @pytest.mark.parametrize("case", ["forbid", "simple", "subst", "subst_forbid", "weighted"])
 def test_graph_dense_route_matches_cpu(cuda, case):
     """The dense route (buckets with a predecessor 32 or more nodes
-    back) on the card equals its CPU run, the backpointer plane
-    included, on tests/test_torch_graph_dense.py's family with a
-    40-base insertion."""
+    back) through its dispatching functions: on the card (the two
+    kernels of csrc/graph_dense.cu, one launch each) it equals its CPU
+    run (the plain versions), the backpointer plane included, on
+    tests/test_torch_graph_dense.py's family with a 40-base insertion."""
     from test_torch_graph_dense import CASES, dense_bucket, run_dense
 
     assert case in CASES
     c = dense_bucket()
+    before = dict(kernels.launches)
     got = run_dense(c, case, cuda)
+    assert kernels.launches["graph_dp_dense"] == before["graph_dp_dense"] + 1
+    assert kernels.launches["graph_traceback_dense"] == before["graph_traceback_dense"] + 1
     want = run_dense(c, case, "cpu")
     _equal(got, want)
     assert got[5].tolist() == [1, 1, 1]
+
+
+def _random_dag(seed, B, N, M, P, *, full=False, nopred=0, far=False):
+    """B random node-ordered graphs of N nodes (the last few padding
+    nodes without predecessors) with up to P predecessor slots a node,
+    left-packed with -1 pads, and B queries in a (B, M) plane, as numpy
+    arrays of the dense route's types; with `full` every slot of a node
+    past the P-th is a predecessor, with `nopred` every nopred-th node
+    has none (and is not always a start node), with `far` the last real
+    node's first predecessor is node 0 and every node is real, so the
+    largest distance is N - 1.  Also the column-weight width, the largest distance and
+    insertion budgets below 1, up to M and above it."""
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.integers(0, 3 * N, (B, N)), axis=1).astype(np.int32)
+    mask = (1 << rng.integers(0, 4, (B, N))).astype(np.uint8)
+    mask[:, ::7] = rng.integers(1, 16, mask[:, ::7].shape)
+    preds = np.full((B, N, P), -1, np.int32)
+    nr = np.full(B, N, np.int32) if far else rng.integers(N - 6, N + 1, B).astype(np.int32)
+    for b in range(B):
+        for j in range(1, int(nr[b])):
+            if nopred and j % nopred == 0:
+                continue
+            lo = max(0, j - 40)
+            k = min(P, j - lo) if full else int(rng.integers(1, min(P, j - lo) + 1))
+            preds[b, j, :k] = rng.choice(np.arange(lo, j), size=k, replace=False)
+        if far:
+            preds[b, nr[b] - 1, 0] = 0
+    start = (preds[:, :, 0] < 0) & (rng.random((B, N)) < 0.5)
+    start[:, 0] = True
+    end = rng.random((B, N)) < 0.1
+    end[np.arange(B), nr - 1] = True
+    qm = (1 << rng.integers(0, 4, (B, M))).astype(np.uint8)
+    qm[:, ::11] = rng.integers(1, 16, qm[:, ::11].shape)
+    ql = rng.integers(M // 2, M + 1, B).astype(np.int32)
+    ql[0] = M
+    budget = rng.choice([-3, 0, 1, 2, 5, 17, M - 1, M, M + 7, 10**6], (B, N)).astype(np.int32)
+    d = np.arange(N)[None, :, None] - preds
+    maxd = int(d[preds >= 0].max())
+    ops = dict(pos=pos, mask=mask, weight=rng.uniform(0.5, 2.0, (B, N)).astype(np.float32),
+               preds=preds, is_start=start, is_end=end, qmask=qm, qlen=ql, n_real=nr)
+    return ops, int(pos.max()) + 2, maxd, budget
+
+
+# name: (B, N, M, P, options of _random_dag)
+DENSE_SHAPES = {
+    "one_query": (1, 60, 97, 4, {}),
+    "ragged_lanes_8": (3, 50, 2050, 4, {}),
+    "all_slots": (2, 70, 130, 8, {"full": True}),
+    "no_predecessors": (2, 64, 77, 4, {"nopred": 3}),
+    "ring_is_the_plane": (2, 40, 64, 4, {"far": True}),
+    # M in 1537..2048: 4 lanes a thread in 512 threads, the block's
+    # every warp slot in use (ragged last lane, then whole lanes)
+    "full_block_4": (2, 50, 2047, 4, {}),
+    "full_block_4_even": (1, 45, 2048, 4, {}),
+}
+
+
+@pytest.mark.parametrize("mode", ["simple", "forbid", "subst_forbid"])
+@pytest.mark.parametrize("shape", sorted(DENSE_SHAPES))
+def test_graph_dense_kernels_at_odd_shapes(cuda, shape, mode):
+    """The dense DP and its walk against their plain versions on
+    random graphs: one query, M not a multiple of the lanes a thread
+    (and the 8-lane kernel), all eight slots valid, nodes without
+    predecessors, the ring as deep as the plane (maxd = N - 1), forbid
+    budgets below 1 and above M, weighted columns and a substitution
+    matrix."""
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    B, N, M, P, opt = DENSE_SHAPES[shape]
+    ops, width, maxd, budget = _random_dag(N * M + P, B, N, M, P, **opt)
+    if shape == "ring_is_the_plane":
+        assert maxd == N - 1
+    if shape.startswith("full_block_4"):
+        plan = ak.graph_dp_dense_plan(M, "forbid" in mode, cuda)
+        assert (plan["lanes"], plan["threads"]) == (4, 512)
+    rng = np.random.default_rng(M)
+    cw = (rng.uniform(0.5, 2.0, (B, width)) if mode != "simple"
+          else np.ones((B, width))).astype(np.float32)
+    extra = dict(max_insert=budget if "forbid" in mode else None,
+                 subst=rng.uniform(-2, 2, (B, 4, 4)).astype(np.float32)
+                 if "subst" in mode else None)
+    t = torch.from_numpy
+    cpu = [t(a) for a in ops.values()] + [t(cw)]
+    cpu_x = {k: None if v is None else t(v) for k, v in extra.items()}
+    params = DpParams(-2.3, 1.1, 5.3, 2.1) if mode == "simple" else DpParams()
+    before = dict(kernels.launches)
+    got = ak.graph_dp_dense(*[a.to(cuda) for a in cpu], params,
+                            **{k: None if v is None else v.to(cuda) for k, v in cpu_x.items()},
+                            maxd=maxd)
+    want = ak.poa_dp_dense(*cpu, params, **cpu_x)
+    _equal(got, want)
+    emit, done = ak.graph_traceback_dense(*got[:3], cpu[3].to(cuda), cpu[4].to(cuda))
+    _equal([emit, done], ak.traceback_dense(*want[:3], cpu[3], cpu[4]))
+    assert kernels.launches["graph_dp_dense"] == before["graph_dp_dense"] + 1
+    assert kernels.launches["graph_traceback_dense"] == before["graph_traceback_dense"] + 1
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_graph_traceback_dense_on_random_planes(cuda, seed):
+    """The dense walk on planes of random cells (every code, slot and
+    flag; slots reaching pads, which make some walks run into the step
+    cap) equals traceback_dense, done flags included."""
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    rng = np.random.default_rng(seed)
+    B, N, M, P = 6, 45, 37, 4
+    bp = torch.from_numpy(rng.integers(0, 1024, (B, N, M)).astype(np.int16))
+    preds = np.full((B, N, P), -1, np.int32)
+    for j in range(1, N):
+        k = int(rng.integers(0, P + 1))
+        preds[:, j, :k] = rng.integers(0, j, (B, k))
+    preds = torch.from_numpy(preds)
+    start = torch.from_numpy(rng.random((B, N)) < 0.05)
+    bj = torch.from_numpy(rng.integers(0, N, B))
+    bi = torch.from_numpy(rng.integers(0, M, B))
+    want = ak.traceback_dense(bp, bj, bi, preds, start)
+    got = ak.graph_traceback_dense(*(x.to(cuda) for x in (bp, bj, bi, preds, start)))
+    _equal(got, want)
+    assert 0 < int(want[1].sum()) < B  # some walks reach the step cap
+
+
+def test_graph_dense_kernels_reject_bad_operands(cuda):
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    ops, width, maxd, _ = _random_dag(1, 2, 40, 50, 4)
+    args = [torch.from_numpy(a).to(cuda) for a in ops.values()]
+    args.append(torch.ones((2, width), device=cuda))
+    with pytest.raises(ValueError, match="ring"):
+        ak.graph_dp_dense(*args, DpParams(), maxd=41)
+    bad = list(args)
+    bad[3] = bad[3].long()
+    with pytest.raises(TypeError):
+        ak.graph_dp_dense(*bad, DpParams(), maxd=maxd)
+    bad[3] = torch.full((2, 40, 9), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="P"):
+        ak.graph_dp_dense(*bad, DpParams(), maxd=maxd)
+    with pytest.raises(ValueError):
+        ak.graph_dp_dense(*args[:3], args[3].cpu(), *args[4:], DpParams(), maxd=maxd)
+
+
+# run in a child process: a failed device-side assert leaves the
+# process's CUDA context unusable
+_SHALLOW_RING = """
+import sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_cuda import _random_dag
+from sina_tpu_torch.ops import align_kernel as ak
+from sina_tpu_torch.ops.align_kernel import DpParams
+ops, width, maxd, _ = _random_dag(1, 2, 40, 50, 4)
+dev = torch.device("cuda", 0)
+args = [torch.from_numpy(a).to(dev) for a in ops.values()]
+args.append(torch.ones((2, width), device=dev))
+try:
+    ak.graph_dp_dense(*args, DpParams(), maxd=maxd - 1)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+
+
+def test_graph_dp_dense_raises_on_a_ring_too_shallow(cuda):
+    """A maxd below the largest predecessor distance would read ring
+    rows already overwritten: the kernel fails a device-side assert,
+    which the next synchronising call raises, instead of returning a
+    wrong alignment."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", _SHALLOW_RING], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    out = res.stdout + res.stderr
+    assert res.returncode == 0, out
+    assert "raised:" in res.stdout and "assert" in out, out
 
 
 # (B, C, M): one query at sizes below one window, not multiples of it

@@ -3,7 +3,9 @@
 A bucket whose largest predecessor distance is 32 or more cannot use
 the graph kernel (its backpointers hold 5-bit distances); the reference
 runs it through the XLA dense core on every backend, and so does the
-port (align_kernel.poa_dp_dense + traceback_dense).  The fixture is a
+port (align_kernel.graph_dp_dense + graph_traceback_dense: on the CPU
+their plain versions poa_dp_dense + traceback_dense, on the card the
+kernels of csrc/graph_dense.cu).  The fixture is a
 family in which one member carries a 40-base insertion that the
 others skip, so the next column's nodes sit more than 40 topological
 positions after their predecessors.  emit, best_j, best_i and raw must
@@ -91,7 +93,7 @@ def dense_bucket() -> dict:
         is_end=np.stack([g.is_end for g in graphs]),
         qm=qm, ql=ql, nr=np.asarray(nr, np.int32),
         max_insert=np.stack([np.clip(g.max_insert, 0, 10**6) for g in graphs]).astype(np.int32),
-        width=graphs[0].width + 2,
+        width=graphs[0].width + 2, maxd=maxd,
     )
 
 
@@ -117,20 +119,22 @@ def case_inputs(c: dict, case: str):
 
 
 def run_dense(c: dict, case: str, device) -> tuple[torch.Tensor, ...]:
-    """The dense route on `device`: (bp, best_j, best_i, raw, emit,
-    done) as CPU tensors."""
+    """The dense route on `device` through its dispatching functions
+    (the plain versions on the CPU, the kernels on the card): (bp,
+    best_j, best_i, raw, emit, done) as CPU tensors."""
     cw, max_ins, subst = case_inputs(c, case)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
-    bp, bj, bi, raw = tak.poa_dp_dense(
-        t(c["pos"]), t(c["mask"].astype(np.uint8)), t(c["weight"]), t(c["preds"]),
-        t(c["is_start"]), t(c["is_end"]), t(c["qm"].astype(np.uint8)), t(c["ql"]),
+    preds = t(c["preds"], np.int32)
+    bp, bj, bi, raw = tak.graph_dp_dense(
+        t(c["pos"], np.int32), t(c["mask"], np.uint8), t(c["weight"], np.float32), preds,
+        t(c["is_start"]), t(c["is_end"]), t(c["qm"], np.uint8), t(c["ql"]),
         t(c["nr"]), t(cw), DpParams(),
         max_insert=None if max_ins is None else t(max_ins),
-        subst=None if subst is None else t(subst))
-    emit, done = tak.traceback_dense(bp, bj, bi, t(c["preds"]), t(c["is_start"]))
+        subst=None if subst is None else t(subst), maxd=c["maxd"])
+    emit, done = tak.graph_traceback_dense(bp, bj, bi, preds, t(c["is_start"]))
     return tuple(x.cpu() for x in (bp, bj, bi, raw, emit, done))
 
 

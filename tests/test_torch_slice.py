@@ -15,6 +15,7 @@ from sina_tpu import cli as jax_cli
 from sina_tpu import testing
 from sina_tpu.io.fasta import FastaWriter, read_fasta
 from sina_tpu_torch import cli as torch_cli
+from sina_tpu_torch.testing import with_long_insertion
 
 _STAMP = re.compile(r"(aligned_slv=|,)\d{4}-\d\d-\d\d \d\d:\d\d:\d\d")
 
@@ -78,9 +79,13 @@ def run_both_clis(c: dict, tmp_path) -> tuple[dict[str, str], list]:
     there (the --debug-graph dumps) is identical too, and that the
     port's records are real alignments of the queries, in the queries'
     own orientation.  With "search_db" every other reference is also
-    written as a second database for --search-db.  Returns the port's
-    other files, by name, and its FASTA records."""
+    written as a second database for --search-db, and with
+    "long_insertion" the reference gets sina_tpu_torch.testing
+    with_long_insertion's columns (its keyword arguments).  Returns the
+    port's other files, by name, and its FASTA records."""
     db = testing.make_reference(**c["ref"])
+    if "long_insertion" in c:
+        db = with_long_insertion(db, **c["long_insertion"])
     queries = testing.make_queries(db, n=c["n"], seed=7, branch_len=0.6)
     if "amplicon" in c:
         for q in queries:
