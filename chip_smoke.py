@@ -38,11 +38,14 @@ Phases, each printing a line:
      and 128 full-length queries (M = 1536), in the simple, weighted,
      bounded-insertion (aspace) and substitution-matrix modes, and the
      dense route's two kernels (csrc/graph_dense.cu) on the same bucket,
-     exact against their plain versions and equal to the graph kernels;
+     exact against their plain versions and equal to the graph kernels,
+     the dense DP's time beside the graph DP's;
      the dense route's kernels on a bucket that takes the route (128
      families of phase 18's reference, largest predecessor distance 32
-     or more, N = 4096, M = 1536) in the simple and forbid modes, timed,
-     with their launch plans and bounds, and in all five modes at
+     or more, N = 4096, M = 1536) in the simple and forbid modes, timed
+     beside their times before the redesign, with their launch plans
+     (the rows kept in shared memory and in the global scratch) and
+     bounds, and in all five modes at
      B = 32, each exact against the plain versions; and the same
      kernels on 32 queries of 1537-2048 nt (N = 4096, M = 2048: the DP's
      4-lane kernel in 512 threads) in the simple and forbid modes,
@@ -227,12 +230,15 @@ GRAPH_INSTS_PER_END_CELL = (4, 1)
 DENSE_INSTS_PER_CELL = (25, 9)
 # the kernels' times before their redesign for this card (PERF.md section
 # 6 names the runs; same shapes, an NVIDIA H100 80GB HBM3 at 700 W; the
-# graph traceback's in the simple mode); printed beside this run's, so
-# the ratio holds both runs' spread
+# graph traceback's in the simple mode; the dense route's on phase 3's
+# dense bucket, the walk warm); printed beside this run's, so the ratio
+# holds both runs' spread
 BEFORE_MS = {"kmer_score": 0.391, "profile_dp": 2.046, "graph_dp simple": 8.926,
              "graph_dp weighted": 8.883, "graph_dp aspace": 11.120,
              "graph_dp matrix": 10.980, "chain_traceback": 0.814,
-             "graph_traceback": 0.640, "profile_dp_forbid": 2.561}
+             "graph_traceback": 0.640, "profile_dp_forbid": 2.561,
+             "graph_dp_dense simple": 9.456, "graph_dp_dense forbid": 13.736,
+             "graph_traceback_dense": 1.069}
 # the launches each DP time is the mean of
 DP_REPS = 10
 # the forbid mode's budgets timed alone (the same in every cell): below 1,
@@ -946,7 +952,7 @@ def phase_graph_kernels(dev) -> dict:
                              gk.graph_traceback_plan(got[0]), flush)
         if mode == "simple":
             phase_global_ring(kernel, ref, k_ring)
-            phase_dense_route(dense, cw, got, emit, params, k_ring - 1)
+            phase_dense_route(dense, cw, got, emit, params, k_ring - 1, ms)
             # the node and query planes, the column weights, the uint16
             # bp plane and the end cells; the instructions of each
             # query's cells (its graph's real nodes x its length), of
@@ -1063,13 +1069,16 @@ def dense_check(name: str, d: dict, cw, max_ins, subst, params, maxd: int,
     return out
 
 
-def phase_dense_route(dense, cw, got, emit, params, maxd: int) -> None:
+def phase_dense_route(dense, cw, got, emit, params, maxd: int, graph_ms: float) -> None:
     """The dense route's kernels on the graph kernels' bucket (largest
     predecessor distance below 32, so the dispatcher sends it to the
     graph kernels, whose results any core must give): exact against
     their plain versions, and emit, best_j, best_i and raw equal to the
-    graph kernels'."""
+    graph kernels'; the dense DP's time beside graph_dp's from this run
+    (`graph_ms`)."""
     import torch
+
+    from sina_tpu_torch.ops import align_kernel as ak
 
     r = dense_check("on the graph kernels' bucket", dense, cw, None, None, params, maxd,
                     timed=True)
@@ -1082,9 +1091,11 @@ def phase_dense_route(dense, cw, got, emit, params, maxd: int) -> None:
     say(f"phase 3 graph dense route simple: the graph kernels' bucket (maxd {maxd}), "
         f"bp/best_j/best_i/raw/emit/done exact against the plain versions, "
         f"emit/best_j/best_i/raw equal to the graph kernels'; graph_dp_dense "
-        f"{r['dp_ms']:.3f} ms, graph_traceback_dense {r['tb_ms']:.3f} ms; plain "
+        f"{r['dp_ms']:.3f} ms ({r['dp_ms'] / graph_ms:.3f}x graph_dp's {graph_ms:.3f} ms "
+        f"in this run), graph_traceback_dense {r['tb_ms']:.3f} ms; plain "
         f"poa_dp_dense {r['plain_dp_ms']:.3f} ms, traceback_dense "
-        f"{r['plain_tb_ms']:.3f} ms (one run)")
+        f"{r['plain_tb_ms']:.3f} ms (one run); launch plan "
+        f"{ak.graph_dp_dense_plan(M_MAIN, False, maxd, cw.device)}")
 
 
 # the dense route's modes (tests/test_torch_graph_dense.py CASES): random
@@ -1134,18 +1145,24 @@ def phase_dense_kernels(dev, ddb) -> dict:
     for mode in ("simple", "forbid"):
         cw, max_ins, sm = inputs(mode, B_MAIN)
         r = dense_check(f"{mode} B={B_MAIN}", d, cw, max_ins, sm, params, maxd, timed=True)
-        plan = ak.graph_dp_dense_plan(M_MAIN, max_ins is not None, dev)
-        ring_mb = B_MAIN * (maxd + 1) * plan["ring_row"] * 4 / 2**20
+        plan = ak.graph_dp_dense_plan(M_MAIN, max_ins is not None, maxd, dev)
+        scratch_mb = B_MAIN * plan["scratch_rows"] * plan["ring_row"] * 4 / 2**20
         aligned = int((r["emit"] >= 0).sum(dim=1).min())
+        before = BEFORE_MS[f"graph_dp_dense {mode}"]
+        tb_before = BEFORE_MS["graph_traceback_dense"]
         say(f"phase 3 graph_dp_dense {mode}: B={B_MAIN} N={N_GRAPH} M={M_MAIN} maxd={maxd} "
-            f"(a ring of {maxd + 1} rows a query, {ring_mb:.1f} MB) bp/best_j/best_i/raw "
-            f"exact; kernel {r['dp_ms']:.3f} ms, plain {r['plain_dp_ms']:.3f} ms (one "
-            f"run); launch plan {plan}")
+            f"({plan['shared_rows']} rows a query in shared memory, a scratch of "
+            f"{plan['scratch_rows']} rows a query, {scratch_mb:.1f} MB) bp/best_j/best_i/raw "
+            f"exact; kernel {r['dp_ms']:.3f} ms (before the redesign, other run: "
+            f"{before:.3f} ms, {r['dp_ms'] / before:.3f}x), plain {r['plain_dp_ms']:.3f} ms "
+            f"(one run); launch plan {plan}")
         say(f"phase 3 graph_traceback_dense {mode}: emit/done exact (fewest bases emitted "
             f"in a row: {aligned}); kernel {r['tb_ms']:.3f} ms warm ({TB_REPS} launches "
-            f"on one plane), {r['tb_cold_ms']:.3f} ms one launch alone cold (L2 flushed "
-            f"by writing {FLUSH_BYTES >> 20} MB before it); plain {r['plain_tb_ms']:.3f} "
-            f"ms (one run); launch plan {ak.graph_traceback_dense_plan(dev)}")
+            f"on one plane; before the redesign, other run: {tb_before:.3f} ms, "
+            f"{r['tb_ms'] / tb_before:.3f}x), {r['tb_cold_ms']:.3f} ms one launch alone "
+            f"cold (L2 flushed by writing {FLUSH_BYTES >> 20} MB before it); plain "
+            f"{r['plain_tb_ms']:.3f} ms (one run); launch plan "
+            f"{ak.graph_traceback_dense_plan(r['got'][0])}")
         if mode != "simple":
             continue
         # the operands, the uint16 bp plane and the end cells (best_j
@@ -1215,7 +1232,7 @@ def phase_dense_long(dev, ddb) -> None:
     params = DpParams()
     times = []
     for mode, max_ins in (("simple", None), ("forbid", fg["budget"].to(dev))):
-        plan = ak.graph_dp_dense_plan(M_LONG, max_ins is not None, dev)
+        plan = ak.graph_dp_dense_plan(M_LONG, max_ins is not None, maxd, dev)
         if (plan["lanes"], plan["threads"]) != (4, 512):
             raise AssertionError(f"graph_dp_dense at M = {M_LONG}: plan {plan}, not 4 lanes "
                                  f"in 512 threads")

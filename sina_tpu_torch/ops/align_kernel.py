@@ -136,8 +136,9 @@ def node_costs(pos, weight, col_weights, subst, params: DpParams) -> dict[str, t
     operations."""
     f32 = torch.float32
     dev = pos.device
-    go = torch.tensor(params.gap_open, dtype=f32, device=dev)
-    ge = torch.tensor(params.gap_ext, dtype=f32, device=dev)
+    # made on the device (a copy from the host would wait for the stream)
+    go = torch.full((), params.gap_open, dtype=f32, device=dev)
+    ge = torch.full((), params.gap_ext, dtype=f32, device=dev)
     W = col_weights.shape[1]
     p = pos.long()
     wcol = torch.gather(col_weights, 1, p)
@@ -401,24 +402,52 @@ MAX_SLOTS = 8
 
 def dense_node_table(pos, mask, weight, preds, is_start, is_end, n_real,
                      col_weights, params: DpParams, max_insert=None,
-                     subst=None) -> torch.Tensor:
+                     subst=None, *, M: int, chip_depth: int | None = None) -> torch.Tensor:
     """The dense kernel's (B, N, 16) int32 per-node table, one 64-byte
     record per node: subw, deletion open and extend, insertion open and
     extend (float32 bits, the plain version's own values from
-    node_costs), mask | flags << 8 (flags: 1 start, 2 end, 4 real
-    node), the insertion budget, 0, and the node's predecessor slots,
-    -1 past P."""
+    node_costs), mask | flags << 8, the insertion budget, its window's
+    divisor, and the node's predecessor slots, -1 past P.
+
+    flags: 1 start; 2 end (of real nodes only); 4 real node; 8 repeat:
+    the node and the one before it have no predecessors and the same
+    record up to this flag, so the node's rows are the previous node's
+    (the rule of _repeats_previous, per query); 16 deep, only with
+    `chip_depth`: a successor reads the node's row from more than
+    chip_depth nodes back, beyond the kernel's on-chip rows, so the
+    kernel also writes it to its global scratch.  The divisor (forbid
+    mode, M the query width) is ceil(2**32 / R) for R = clip(budget, 1,
+    M) >= 2, else 0, as int32 bits (csrc/forbid_window.cuh)."""
     i32 = torch.int32
-    N = pos.shape[1]
+    B, N = pos.shape
+    P = preds.shape[2]
+    dev = pos.device
     costs = node_costs(pos, weight, col_weights, subst, params)
-    valid = torch.arange(N, device=pos.device)[None, :] < n_real.long()[:, None]
-    flags = is_start.to(i32) | (is_end.to(i32) << 1) | (valid.to(i32) << 2)
-    mf = mask.to(i32) | (flags << 8)
-    budget = max_insert.to(i32) if max_insert is not None else torch.zeros_like(mf)
-    slots = F.pad(preds.to(i32), (0, MAX_SLOTS - preds.shape[2]), value=-1)
-    cols = ([costs[k].contiguous().view(i32) for k in ("subw", "dgo", "dge", "gio", "gie")]
-            + [mf, budget, torch.zeros_like(mf)])
-    return torch.cat([torch.stack(cols, dim=2), slots], dim=2).contiguous()
+    valid = torch.arange(N, device=dev)[None, :] < n_real[:, None]
+    tab = torch.empty((B, N, 8 + MAX_SLOTS), dtype=i32, device=dev)
+    for k, name in enumerate(("subw", "dgo", "dge", "gio", "gie")):
+        tab[:, :, k] = costs[name].view(i32)
+    tab[:, :, 5] = (mask.to(i32) | (is_start.to(i32) << 8) | ((is_end & valid).to(i32) << 9)
+                    | (valid.to(i32) << 10))
+    if max_insert is not None:
+        tab[:, :, 6] = max_insert
+        R = max_insert.long().clamp(1, M)
+        rdiv = torch.where(R > 1, (0xFFFFFFFF + R) // R, 0)
+        tab[:, :, 7] = torch.where(rdiv >= 2**31, rdiv - 2**32, rdiv)
+    else:
+        tab[:, :, 6:8] = 0
+    tab[:, :, 8:8 + P] = preds
+    tab[:, :, 8 + P:] = -1
+    nopred = (preds < 0).all(dim=2)
+    rep = (tab[:, 1:] == tab[:, :-1]).all(dim=2) & nopred[:, 1:] & nopred[:, :-1]
+    tab[:, 1:, 5] |= rep.to(i32) << 11
+    if chip_depth is not None:
+        far = (preds >= 0) & (torch.arange(N, dtype=i32, device=dev)[None, :, None] - preds
+                              > chip_depth)
+        deep = torch.zeros((B, N + 1), dtype=i32, device=dev)  # column N: no node
+        deep.scatter_(1, torch.where(far, preds, N).reshape(B, -1).long(), 1)
+        tab[:, :, 5] |= deep[:, :N] << 12
+    return tab
 
 
 def graph_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
@@ -428,13 +457,15 @@ def graph_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
     mask uint8, weight f32, preds int32, is_start/is_end bool, qmask
     uint8, qlen/n_real int32, col_weights f32, max_insert int32, subst
     f32).  CPU tensors take the plain version; CUDA tensors launch
-    csrc/graph_dense.cu (or raise), whose ring holds maxd + 1 node rows
-    of each query in a global scratch: maxd must be at least the
-    bucket's largest predecessor distance j - p (the dispatcher's).  A
-    predecessor farther back fails a device-side assert in the kernel,
-    which the next synchronising call raises as a RuntimeError (and
-    which leaves the process's CUDA context unusable, as any CUDA
-    kernel assert does)."""
+    csrc/graph_dense.cu (or raise), which keeps the rows of the last
+    maxd nodes (on chip, and those read from farther back than the
+    chip holds also in a global scratch of maxd + 1 rows a query that
+    the launch plan sizes): maxd must be at least the bucket's largest
+    predecessor distance j - p (the dispatcher's).  A predecessor
+    farther back fails a device-side assert in the kernel, which the
+    next synchronising call raises as a RuntimeError (and which leaves
+    the process's CUDA context unusable, as any CUDA kernel assert
+    does)."""
     if qmask.device.type == "cpu":
         return poa_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask,
                             qlen, n_real, col_weights, params, max_insert, subst)
@@ -467,26 +498,30 @@ def graph_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
         raise ValueError("qmask must be (B, M), qlen and n_real (B,), col_weights (B, W)")
     if subst is not None and tuple(subst.shape) != (B, 4, 4):
         raise ValueError("subst must be (B, 4, 4)")
-    K = int(maxd) + 1
-    if not 1 <= K <= N + 1:
-        raise ValueError(f"the ring of maxd + 1 = {K} node rows must hold 1 to N + 1 = {N + 1}")
+    maxd = int(maxd)
+    if not 0 <= maxd <= N:
+        raise ValueError(f"the ring of maxd + 1 = {maxd + 1} node rows must hold 1 to "
+                         f"N + 1 = {N + 1}")
     if not 0 < M <= 16384:
         raise ValueError(f"graph_dp_dense kernel needs 1 <= M <= 16384 (M={M})")
     aspace = max_insert is not None
-    cfg = graph_dp_dense_plan(M, aspace, dev)
+    cfg = graph_dp_dense_plan(M, aspace, maxd, dev)
+    rows = cfg["scratch_rows"]
     table = dense_node_table(pos, mask, weight, preds, is_start, is_end, n_real,
-                             col_weights, params, max_insert, subst)
+                             col_weights, params, max_insert, subst, M=M,
+                             chip_depth=max(cfg["shared_rows"], 1) if rows else None)
     smat = (subst.reshape(B, 16).contiguous() if subst is not None
             else torch.zeros((B, 16), dtype=torch.float32, device=dev))
     bp = torch.empty((B, N, M), dtype=torch.int16, device=dev)
     best = torch.empty((B, 8), dtype=torch.float32, device=dev)
-    ring = torch.empty((B, K * cfg["ring_row"]), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((B, rows * cfg["ring_row"]), dtype=torch.float32, device=dev)
+               if rows else None)
     kernels.launch(
         "graph_dp_dense", kernels.lib().sina_graph_dp_dense,
         table.data_ptr(), qmask.data_ptr(), qlen.data_ptr(), smat.data_ptr(),
-        bp.data_ptr(), best.data_ptr(), ring.data_ptr(), B, N, M, K,
-        int(aspace), int(subst is not None), params.match, params.mismatch,
-        device=dev,
+        bp.data_ptr(), best.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, N, M, maxd, int(aspace), int(subst is not None), params.match,
+        params.mismatch, device=dev,
     )
     # (v1, j1, v2, j2, i2): the two end candidates, decoded as
     # poa_dp_dense decodes its running minima
@@ -497,15 +532,19 @@ def graph_dp_dense(pos, mask, weight, preds, is_start, is_end, qmask, qlen,
     return bp, best_j, best_i, torch.where(use2, v2, v1)
 
 
-def graph_dp_dense_plan(M: int, aspace: bool,
+def graph_dp_dense_plan(M: int, aspace: bool, maxd: int,
                         device: torch.device | None = None) -> dict:
-    """The dense DP kernel's launch plan on `device` (needs the card):
-    lanes a thread, threads, floats of a ring row (a query's scratch is
-    maxd + 1 of them), dynamic and static shared memory bytes a block,
-    registers a thread."""
-    out = kernels.plan(kernels.lib().sina_graph_dp_dense_plan, M, int(aspace), n=6,
-                       device=device)
-    keys = ("lanes", "threads", "ring_row", "dyn_smem", "static_smem", "regs")
+    """The dense DP kernel's launch plan on `device` (needs the card)
+    for M query positions and the largest predecessor distance maxd:
+    lanes a thread, threads, floats of a node row, dynamic and static
+    shared memory bytes a block, registers a thread, the rows of the
+    shared-memory ring (the distances up to max(shared_rows, 1) are on
+    chip) and the rows of the global scratch a query (maxd + 1 where
+    maxd is beyond the chip's rows, else 0)."""
+    out = kernels.plan(kernels.lib().sina_graph_dp_dense_plan, M, int(aspace), int(maxd),
+                       n=8, device=device)
+    keys = ("lanes", "threads", "ring_row", "dyn_smem", "static_smem", "regs",
+            "shared_rows", "scratch_rows")
     return dict(zip(keys, out))
 
 
@@ -522,8 +561,10 @@ def graph_traceback_dense(bp, best_j, best_i, preds, is_start):
     kernels.require_cuda("is_start", is_start, torch.bool, dev, 2)
     B, N, M = bp.shape
     P = preds.shape[2]
-    if preds.shape[:2] != (B, N) or tuple(is_start.shape) != (B, N):
-        raise ValueError("preds must be (B, N, P) and is_start (B, N) for bp (B, N, M)")
+    if (preds.shape[:2] != (B, N) or tuple(is_start.shape) != (B, N)
+            or not 1 <= P <= MAX_SLOTS):
+        raise ValueError(f"preds must be (B, N, P) with 1 <= P <= {MAX_SLOTS} and is_start "
+                         "(B, N) for bp (B, N, M)")
     for name, t in (("best_j", best_j), ("best_i", best_i)):
         if t.device != dev or tuple(t.shape) != (B,):
             raise ValueError(f"{name} must be ({B},) on {dev}")
@@ -540,12 +581,17 @@ def graph_traceback_dense(bp, best_j, best_i, preds, is_start):
     return emit, done
 
 
-def graph_traceback_dense_plan(device: torch.device | None = None) -> dict:
-    """The dense traceback kernel's launch plan (needs the card):
-    threads a block (one of them walks), static shared memory bytes a
-    block, registers a thread."""
-    out = kernels.plan(kernels.lib().sina_graph_traceback_dense_plan, n=3, device=device)
-    return dict(zip(("threads", "static_smem", "regs"), out))
+def graph_traceback_dense_plan(bp: torch.Tensor) -> dict:
+    """The dense traceback kernel's launch plan for the plane bp (needs
+    the card): threads (one of them walks), the staged window's nodes
+    and query positions, bytes a window copy moves at once (16 where
+    bp's nodes are 16-byte aligned, else 4 or 2), dynamic and static
+    shared memory bytes a block, registers a thread."""
+    out = kernels.plan(kernels.lib().sina_graph_traceback_dense_plan, bp.data_ptr(),
+                       bp.shape[-1], n=7, device=bp.device)
+    keys = ("threads", "window_nodes", "window_rows", "copy_bytes", "dyn_smem",
+            "static_smem", "regs")
+    return dict(zip(keys, out))
 
 
 def emit_to_pairs(emit: np.ndarray) -> tuple[list, int]:

@@ -35,8 +35,9 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("kmer_score.cu", "kmer_dense.cu", "profile_dp.cu",
            "chain_traceback.cu", "graph_dp.cu", "graph_traceback.cu",
            "graph_dense.cu")
-# included by the sources (the DPs' block scan, the tracebacks' window)
-HEADERS = ("dp_scan.cuh", "traceback_window.cuh")
+# included by the sources (the DPs' block scan, the tracebacks' window, the
+# dense graph DP's bounded insertion window)
+HEADERS = ("dp_scan.cuh", "traceback_window.cuh", "forbid_window.cuh")
 # --fmad=false: the DPs must keep the reference's f32 rounding (no
 # mul+add contraction to FMA other than the ones written out) to stay
 # bit-equal to their plain versions
@@ -160,11 +161,11 @@ def lib() -> ctypes.CDLL:
         so.sina_graph_traceback_plan.restype = I
         so.sina_graph_dp_dense.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P]
         so.sina_graph_dp_dense.restype = I
-        so.sina_graph_dp_dense_plan.argtypes = [I, I, P]
+        so.sina_graph_dp_dense_plan.argtypes = [I, I, I, P]
         so.sina_graph_dp_dense_plan.restype = I
         so.sina_graph_traceback_dense.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P]
         so.sina_graph_traceback_dense.restype = I
-        so.sina_graph_traceback_dense_plan.argtypes = [P]
+        so.sina_graph_traceback_dense_plan.argtypes = [P, I, P]
         so.sina_graph_traceback_dense_plan.restype = I
         so.sina_cuda_error_string.argtypes = [I]
         so.sina_cuda_error_string.restype = ctypes.c_char_p

@@ -637,7 +637,7 @@ def test_graph_dense_kernels_at_odd_shapes(cuda, shape, mode):
     if shape == "ring_is_the_plane":
         assert maxd == N - 1
     if shape.startswith("full_block_4"):
-        plan = ak.graph_dp_dense_plan(M, "forbid" in mode, cuda)
+        plan = ak.graph_dp_dense_plan(M, "forbid" in mode, maxd, cuda)
         assert (plan["lanes"], plan["threads"]) == (4, 512)
     rng = np.random.default_rng(M)
     cw = (rng.uniform(0.5, 2.0, (B, width)) if mode != "simple"
@@ -683,6 +683,165 @@ def test_graph_traceback_dense_on_random_planes(cuda, seed):
     got = ak.graph_traceback_dense(*(x.to(cuda) for x in (bp, bj, bi, preds, start)))
     _equal(got, want)
     assert 0 < int(want[1].sum()) < B  # some walks reach the step cap
+
+
+def _dense_against_plain(cuda, ops, width, maxd, mode, budget, seed):
+    """graph_dp_dense and graph_traceback_dense on the card against
+    poa_dp_dense and traceback_dense on the CPU (one launch each), in
+    `mode` (simple, forbid or subst_forbid, as the odd-shapes test)."""
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    B = ops["pos"].shape[0]
+    rng = np.random.default_rng(seed)
+    cw = (rng.uniform(0.5, 2.0, (B, width)) if mode != "simple"
+          else np.ones((B, width))).astype(np.float32)
+    t = torch.from_numpy
+    cpu = [t(a) for a in ops.values()] + [t(cw)]
+    cpu_x = {"max_insert": t(budget) if "forbid" in mode else None,
+             "subst": t(rng.uniform(-2, 2, (B, 4, 4)).astype(np.float32))
+             if "subst" in mode else None}
+    params = DpParams(-2.3, 1.1, 5.3, 2.1) if mode == "simple" else DpParams()
+    before = dict(kernels.launches)
+    got = ak.graph_dp_dense(*[a.to(cuda) for a in cpu], params,
+                            **{k: None if v is None else v.to(cuda) for k, v in cpu_x.items()},
+                            maxd=maxd)
+    want = ak.poa_dp_dense(*cpu, params, **cpu_x)
+    _equal(got, want)
+    emit, done = ak.graph_traceback_dense(*got[:3], cpu[3].to(cuda), cpu[4].to(cuda))
+    _equal([emit, done], ak.traceback_dense(*want[:3], cpu[3], cpu[4]))
+    assert kernels.launches["graph_dp_dense"] == before["graph_dp_dense"] + 1
+    assert kernels.launches["graph_traceback_dense"] == before["graph_traceback_dense"] + 1
+
+
+def _pad_as_buckets_do(ops, budget, n_real):
+    """Nodes n_real[b].. of each query made padding nodes as
+    ops/graph.pad_graph makes them (no predecessors, the last column,
+    mask and weight 0, neither start nor end), and no real node naming
+    one: each query's first padding node follows a real node, the rest
+    repeat it."""
+    N = ops["pos"].shape[1]
+    last = ops["pos"].max() + 1  # _random_dag's width - 1
+    for b, n in enumerate(n_real):
+        ops["pos"][b, n:] = last
+        for key in ("mask", "weight", "is_start", "is_end"):
+            ops[key][b, n:] = 0
+        ops["preds"][b, n:] = -1
+        ops["preds"][b][ops["preds"][b] >= n] = -1
+        budget[b, n:] = 0
+    ops["n_real"][:] = n_real
+    ops["preds"].sort(axis=2)
+    ops["preds"][:] = ops["preds"][:, :, ::-1]  # real slots first, as graphs pack them
+    assert N == max(n_real)
+
+
+@pytest.mark.parametrize("mode", ["simple", "forbid", "subst_forbid"])
+def test_graph_dense_padding_differs_per_query(cuda, mode):
+    """A bucket whose queries' graphs end at different nodes, one with no
+    padding at all: the kernel copies each query's repeated padding
+    nodes itself (the plain version copies a node only where every
+    query repeats it), and bp, the end cells and the walks still equal
+    the plain versions'.  Query 1 also holds two real start nodes
+    without predecessors and with equal records, which repeat too."""
+    B, N, M, P = 4, 90, 530, 4
+    ops, width, _, budget = _random_dag(17, B, N, M, P)
+    _pad_as_buckets_do(ops, budget, [N, N - 1, N - 23, N // 2])
+    for key in ("pos", "mask", "weight"):
+        ops[key][1, 21] = ops[key][1, 20]
+    ops["is_start"][1, 20:22] = True
+    ops["is_end"][1, 20:22] = False
+    budget[1, 21] = budget[1, 20]
+    ops["preds"][1, 20:22] = -1
+    d = np.arange(N)[None, :, None] - ops["preds"]
+    maxd = int(d[ops["preds"] >= 0].max())
+    _dense_against_plain(cuda, ops, width, maxd, mode, budget, seed=3)
+
+
+def _ring_edge_dag(seed, B, N, M, S):
+    """_random_dag's graphs (every node's predecessors within 40 nodes)
+    with predecessors at distances S - 1, S and S + 1 (the shared ring's
+    last row and the first beyond it), three beyond it in one node (more
+    than the kernel loads a node ahead), one from a repeated start node,
+    a -1 slot before a real one, and node N - 1 naming node 0 (maxd = N -
+    1); and budgets at the forbid window's edges at 4 lanes a thread
+    (below 1, 1, 4 and 5 lanes, one warp's 128 lanes and one more, M - 1
+    and M)."""
+    ops, width, _, _ = _random_dag(seed, B, N, M, 8)
+    pr = ops["preds"]
+    ops["n_real"][:] = N
+    pr[:, 50, :4] = [49, 50 - (S - 1), 50 - S, 50 - (S + 1)]
+    pr[:, 60, :5] = [60 - (S + 3), 59, 60 - (S + 1), 60 - (S + 2), 58]
+    # nodes 10 and 11: start nodes without predecessors and one record
+    for key in ("pos", "mask", "weight"):
+        ops[key][:, 11] = ops[key][:, 10]
+    pr[:, 10:12] = -1
+    pr[pr == 10] = -1
+    ops["is_start"][:, 10:12] = True
+    ops["is_end"][:, 10:12] = False
+    pr[:, 12 + S, :3] = [-1, 11, 12 + S - 1]
+    pr[:, N - 1, 0] = 0
+    rng = np.random.default_rng(seed)
+    budget = rng.choice([-1, 0, 1, 4, 5, 128, 129, M - 1, M], (B, N)).astype(np.int32)
+    budget[:, 11] = budget[:, 10]
+    return ops, width, budget
+
+
+@pytest.mark.parametrize("M", [1536, 2048])
+@pytest.mark.parametrize("mode", ["simple", "forbid"])
+def test_graph_dense_at_the_ring_edges(cuda, mode, M):
+    """Predecessors at the shared ring's edge (S - 1, S and S + 1 nodes
+    back, S the plan's shared rows at this M and mode), several beyond it
+    in one node, a repeated node's row read from beyond it, and maxd = N
+    - 1, at the main path's widths: exact against the plain versions,
+    with the scratch the plan asks for."""
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    B, N = 2, 80
+    plan = ak.graph_dp_dense_plan(M, mode == "forbid", N - 1, cuda)
+    S = plan["shared_rows"]
+    assert 2 <= S < 38 and plan["scratch_rows"] == N and plan["lanes"] == 4
+    ops, width, budget = _ring_edge_dag(M + S, B, N, M, S)
+    d = np.arange(N)[None, :, None] - ops["preds"]
+    assert int(d[ops["preds"] >= 0].max()) == N - 1
+    _dense_against_plain(cuda, ops, width, N - 1, mode, budget, seed=M)
+    assert ak.graph_dp_dense_plan(M, mode == "forbid", S, cuda)["scratch_rows"] == 0
+
+
+@pytest.mark.parametrize("M", [501, 502, 504])
+def test_graph_traceback_dense_jumps_beyond_the_window(cuda, M):
+    """The dense walk on random planes over graphs whose slots 0-5 name
+    the 1-6 nodes before a node, slot 6 one 257-450 nodes back (beyond
+    the 256-node window) and slot 7 none; the cells' slots are mostly 0,
+    rarely 6, so the walks are long and some jump out of the window.
+    From the plane's far corner, its last node, its first position and
+    inner cells, with one-cell (M odd), 4-byte (M even) and 16-byte (M %
+    8 == 0) window copies: emit and done equal traceback_dense."""
+    from sina_tpu_torch.ops import align_kernel as ak
+
+    rng = np.random.default_rng(M)
+    B, N, P = 5, 700, 8
+    shape = (B, N, M)
+    prob = [0.9, 0.03, 0.03, 0.02, 0.01, 0.002, 0.005, 0.003]
+    cells = (rng.choice([1, 1, 1, 1, 1, 1, 2, 3], shape)
+             | (rng.choice(8, shape, p=prob) << 2) | (rng.choice(8, shape, p=prob) << 5))
+    cells |= (rng.random(shape) < 0.3).astype(np.int64) << 8
+    cells |= (rng.random(shape) < 0.3).astype(np.int64) << 9
+    bp = torch.from_numpy(cells.astype(np.int16))
+    j = np.arange(N)[None, :, None]
+    preds = np.maximum(j - np.arange(1, 7)[None, None, :], 0).repeat(B, axis=0)
+    far = np.maximum(j[..., 0] - rng.integers(257, 451, (B, N)), 0)
+    preds = np.concatenate([preds, far[..., None], np.full((B, N, 1), -1)], axis=2)
+    preds[:, 0] = -1
+    preds = torch.from_numpy(preds.astype(np.int32))
+    start = torch.from_numpy(rng.random((B, N)) < 0.0005)
+    start[:, 0] = True
+    bj = torch.tensor([N - 1, N - 1, N - 1, 300, 1])
+    bi = torch.tensor([M - 1, 0, 160, M - 1, M - 1])
+    want = ak.traceback_dense(bp, bj, bi, preds, start)
+    got = ak.graph_traceback_dense(*(x.to(cuda) for x in (bp, bj, bi, preds, start)))
+    _equal(got, want)
+    assert ak.graph_traceback_dense_plan(got[0].new_empty((1, 1, M), dtype=torch.int16)
+                                         )["copy_bytes"] == _copy_bytes(M, 2)
+    assert int((want[0] >= 0).sum(dim=1).max()) > 150  # long walks
 
 
 def test_graph_dense_kernels_reject_bad_operands(cuda):

@@ -170,3 +170,121 @@ def test_dense_route_matches_xla(bucket, case):
     for name, a, b in zip(("emit", "best_j", "best_i", "raw"), got, want):
         np.testing.assert_array_equal(a, np.asarray(b), err_msg=name)
     assert (got[0] >= 0).sum() > 0.8 * c["ql"].sum()
+
+
+# The dense kernel's node records (ops/align_kernel.dense_node_table):
+# the flags and the window divisor it reads, computed on the host from
+# the planes; here against the plain version's rules and numpy.
+
+TABLE_MODES = ("simple", "forbid", "subst_forbid")
+REPEAT, DEEP = 8 << 8, 16 << 8  # the record's flag bits in its mask word
+
+
+def _torch_inputs(c: dict, case: str) -> tuple[list, dict]:
+    """The dense route's operands of dense_node_table, as CPU tensors,
+    and its keywords (max_insert, subst)."""
+    cw, max_ins, subst = case_inputs(c, case)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+
+    args = [t(c["pos"], np.int32), t(c["mask"], np.uint8), t(c["weight"], np.float32),
+            t(c["preds"], np.int32), t(c["is_start"]), t(c["is_end"]), t(c["nr"]), t(cw)]
+    return args, dict(max_insert=None if max_ins is None else t(max_ins),
+                      subst=None if subst is None else t(subst))
+
+
+def _with_twin_start_nodes(c: dict) -> dict:
+    """The bucket with nodes 5 and 6 of query 1 made two real start
+    nodes without predecessors and with equal records (no node names
+    them as a predecessor any more): a repeat in the middle of a graph,
+    not padding."""
+    c = {k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in c.items()}
+    for key in ("pos", "mask", "weight", "max_insert"):
+        c[key][1, 6] = c[key][1, 5]
+    c["is_start"][1, 5:7] = True
+    c["is_end"][1, 5:7] = False
+    c["preds"][1, 5:7] = -1
+    c["preds"][1][np.isin(c["preds"][1], [5, 6])] = -1
+    return c
+
+
+def _plain_repeats(args: list, kw: dict, b: slice) -> list[bool]:
+    """_repeats_previous over the planes poa_dp_dense compares, for the
+    queries `b`."""
+    pos, mask, weight, preds, is_start, is_end, nr, cw = (a[b] for a in args)
+    costs = tak.node_costs(pos, weight, cw, None if kw["subst"] is None else kw["subst"][b],
+                           DpParams())
+    N = pos.shape[1]
+    valid = torch.arange(N)[None, :] < nr.long()[:, None]
+    planes = [costs[k] for k in ("subw", "dgo", "dge", "gio", "gie")]
+    planes += [mask.long(), is_start.bool(), is_end.bool() & valid, valid]
+    if kw["max_insert"] is not None:
+        planes.append(kw["max_insert"][b])
+    return tak._repeats_previous(planes, (preds.long() < 0).all(dim=2))
+
+
+@pytest.mark.parametrize("twin", [False, True])
+@pytest.mark.parametrize("case", TABLE_MODES)
+def test_dense_node_table_repeat_flag_is_the_plain_rule(bucket, case, twin):
+    """Each query's repeat flags are _repeats_previous's rule applied to
+    that query alone (its padding nodes after the first; with `twin`
+    also a real start node repeating its twin), and a node repeats in
+    every query exactly where the plain version copies it for the whole
+    batch.  The queries' graphs have different real node counts."""
+    c = _with_twin_start_nodes(bucket) if twin else bucket
+    args, kw = _torch_inputs(c, case)
+    tab = tak.dense_node_table(*args, DpParams(), **kw, M=c["qm"].shape[1])
+    rep = (tab[:, :, 5] & REPEAT) != 0
+    B = rep.shape[0]
+    assert len(set(c["nr"].tolist())) == B
+    for b in range(B):
+        assert rep[b].tolist() == _plain_repeats(args, kw, slice(b, b + 1)), b
+        assert int(rep[b].sum()) >= c["pos"].shape[1] - int(c["nr"][b]) - 1
+    assert rep.all(dim=0).tolist() == _plain_repeats(args, kw, slice(None))
+    assert bool(rep[1, 6]) == twin
+
+
+@pytest.mark.parametrize("depth", [1, 2, 15, 16, 17, "maxd-1", "maxd"])
+def test_dense_node_table_deep_flag(bucket, depth):
+    """The deep flag marks exactly the nodes some successor names from
+    more than chip_depth nodes back (numpy over the slots), and no node
+    without chip_depth."""
+    c = bucket
+    depth = c["maxd"] + (-1 if depth == "maxd-1" else 0) if isinstance(depth, str) else depth
+    args, kw = _torch_inputs(c, "simple")
+    M = c["qm"].shape[1]
+    tab = tak.dense_node_table(*args, DpParams(), **kw, M=M, chip_depth=depth)
+    preds = c["preds"]
+    B, N, _ = preds.shape
+    want = np.zeros((B, N), bool)
+    for b, q, s in zip(*np.nonzero(preds >= 0)):
+        p = preds[b, q, s]
+        if q - p > depth:
+            want[b, p] = True
+    got = (tab[:, :, 5] & DEEP).numpy() != 0
+    np.testing.assert_array_equal(got, want)
+    assert want.any() == (depth < c["maxd"])
+    none = tak.dense_node_table(*args, DpParams(), **kw, M=M)
+    assert not ((none[:, :, 5] & DEEP) != 0).any()
+
+
+@pytest.mark.parametrize("M", [1536, 2048, 7])
+def test_dense_node_table_window_divisor(bucket, M):
+    """Forbid mode's per-node divisor is ceil(2**32 / R) for R =
+    clip(budget, 1, M) >= 2 (0 for R = 1), so that n // R == (n * rdiv)
+    >> 32 for every lane number n < 2**16; without budgets it is 0."""
+    c = dict(bucket)
+    c["max_insert"] = np.random.default_rng(M).choice(
+        [-3, 0, 1, 2, 3, 5, 33, 129, M - 1, M, M + 9, 10**6], c["pos"].shape).astype(np.int32)
+    args, kw = _torch_inputs(c, "forbid")
+    tab = tak.dense_node_table(*args, DpParams(), **kw, M=M)
+    rdiv = tab[:, :, 7].numpy().astype(np.int64) & 0xFFFFFFFF
+    R = np.clip(c["max_insert"].astype(np.int64), 1, M)
+    np.testing.assert_array_equal(rdiv, np.where(R > 1, -(-(1 << 32) // R), 0))
+    n = np.arange(1 << 16, dtype=np.uint64)
+    for r, d in set(zip(R.ravel().tolist(), rdiv.ravel().tolist())):
+        if r > 1:
+            np.testing.assert_array_equal((n * np.uint64(d)) >> np.uint64(32), n // np.uint64(r))
+    args, kw = _torch_inputs(c, "simple")
+    assert int(tak.dense_node_table(*args, DpParams(), **kw, M=M)[:, :, 7].abs().sum()) == 0
