@@ -118,7 +118,22 @@ Phases, each printing a line:
      (graph_dense_route and both dense kernels' launches equal to the
      bucket count, no graph_dp launch), the device's busy share and
      device ms by kernel; then the first 16 queries again with
-     device="cpu": identical records.
+     device="cpu": identical records;
+ 19. the transfers (sina_tpu_torch/ops/transfer.py) on a batch of 128
+     queries of each of phases 5, 12, 7 and 18 (the profile, forbid,
+     graph and dense routes): famfinder's submit_batch and
+     align_dispatch raise nothing under
+     torch.cuda.set_sync_debug_mode("error"), each profile launch makes
+     one host-to-device copy (its wire), every buffer of the pinned pool
+     is pinned; on the profile and graph routes famfinder's fetch and the
+     aligner's finalize return while a sleep kernel queued after each
+     still runs, with records equal to the run without it.
+
+Phases 5, 7, 12 and 18 also print their steady batches' copies (counts,
+the host ms a batch of the upload and fetch sections) and, from the
+profiled second pass, each kind of copy's device ms; the device's busy
+ms there are the union of its activity intervals over the compute and
+copy streams.
 
 The second-to-last line is the kernels' JSON record, the line before
 it the card's `nvidia-smi` name and power limit, and the last line
@@ -732,9 +747,9 @@ def device_split(fn, reps: int) -> tuple[float, float]:
     """Device ms a call of fn(), by torch.profiler over `reps` calls: the
     bitpacked scorer's kernels (kmer_runs_kernel, kmer_score_kernel), and
     everything else."""
-    busy, _, per = device_busy(lambda: [fn() for _ in range(reps)])
-    kernel = sum(ms for ms, name in per if "kmer_" in name)
-    return kernel / reps, (busy - kernel) / reps
+    _, _, per = device_busy(lambda: [fn() for _ in range(reps)])
+    kernel = sum(ms for ms, _, name in per if "kmer_" in name)
+    return kernel / reps, (sum(ms for ms, _, _ in per) - kernel) / reps
 
 
 def traceback_bound(emit, bp_bytes: int) -> dict:
@@ -1401,9 +1416,13 @@ def _run_batches(finder, batches, acfg, device, searcher=None):
 
 def device_busy(fn) -> tuple[float, float, list]:
     """Run fn() under torch.profiler (device activity only): returns
-    (device ms, wall ms, [(ms, name)] largest first).  One stream, so
-    the device ms do not overlap."""
+    (device busy ms, wall ms, [(ms, calls, name)] largest first).  The
+    busy ms are the union of the device activities' intervals over all
+    streams: the copies to the host run on a copy stream beside the
+    compute stream's kernels (ops/transfer), so the per-name ms, each a
+    name's own sum, may add up to more."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1412,10 +1431,54 @@ def device_busy(fn) -> tuple[float, float, list]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    per = sorted(((e.self_device_time_total / 1e3, e.key)
+    per = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0), reverse=True)
-    return sum(ms for ms, _ in per), wall, per
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if per and not spans:
+        raise AssertionError("torch.profiler gave device times but no device intervals")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3, wall, per
+
+
+def report_busy(phase: str, busy: float, wall: float, per: list) -> None:
+    """Print a device_busy result: the busy share, the eight largest
+    names and the copies (each kind's device ms and count)."""
+    if not per:
+        say(f"{phase} device busy: not measured (the profiler recorded no device activity)")
+        return
+    say(f"{phase} device busy: {busy:.3f} ms of {wall:.3f} ms wall "
+        f"({100 * busy / wall:.2f}%, torch.profiler, second pass; the union of the "
+        f"compute and copy streams' intervals)")
+    for ms, _, name in per[:8]:
+        say(f"  device {ms:9.3f} ms  {name[:90]}")
+    copies = [(ms, n, name) for ms, n, name in per if name.startswith("Memcpy")]
+    say(f"{phase} copies (device ms, count): "
+        + ("; ".join(f"{name} {ms:.3f} ({n})" for ms, n, name in copies) or "none"))
+
+
+def report_transfers(phase: str, batches: int) -> None:
+    """Print the transfer counts of the steady run just made (counted
+    from its start) and the host ms a batch of the upload and fetch
+    sections: the profile wire's upload (ProfileDP h2d), famfinder's
+    and the aligner's fetches."""
+    from sina_tpu_torch.ops import transfer
+    from sina_tpu_torch.timing import get_timer
+
+    parts = []
+    for timer, section in (("ProfileDP", "h2d"), ("Kmer Search", "fetch topk"),
+                           ("Aligner", "profile dp fetch"), ("GraphDP", "fetch")):
+        t = get_timer(timer)
+        if t.counts.get(section):
+            parts.append(f"{timer} {section} {1e3 * t.sections[section] / batches:.3f} ms "
+                         f"({t.counts[section]} calls)")
+    say(f"{phase} transfers: {transfer.counts['h2d']} host-to-device and "
+        f"{transfer.counts['d2h']} device-to-host copies in {batches} steady batches; "
+        f"host ms a batch: {'; '.join(parts)}; pinned pool {transfer.pool_bytes()} bytes")
 
 
 def make_db():
@@ -1437,7 +1500,7 @@ def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, 
     from sina_tpu_torch import testing
     from sina_tpu_torch.align import AlignerConfig
     from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
-    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.ops import kernels, transfer
     from sina_tpu_torch.timing import _registry, reset_all
 
     t0 = time.perf_counter()
@@ -1462,11 +1525,13 @@ def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, 
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     reset_all()
+    transfer.reset_counts()
     t0 = time.perf_counter()
     with first_scored_ids() as real_kmers:
         aligned += _run_batches(finder, batches[1:], acfg, dev)
         torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
+    report_transfers("phase 5", len(batches) - 1)
     launches = dict(kernels.launches)
     n_steady = N_QUERIES - B_MAIN
     rate = n_steady / t_steady
@@ -1488,14 +1553,7 @@ def phase_main_path(dev, tmp: Path, db, t_db: float) -> tuple[dict, list, list, 
     # the same steady batches again, profiled, for the device's share
     busy, wall, per = device_busy(
         lambda: _run_batches(finder, batches[1:], acfg, dev))
-    if busy > 0:
-        say(f"phase 5 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
-            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
-        for ms, name in per[:8]:
-            say(f"  device {ms:9.3f} ms  {name[:90]}")
-    else:
-        say("phase 5 device busy: not measured (the profiler recorded "
-            "no device activity)")
+    report_busy("phase 5", busy, wall, per)
     real_batch_scorer(P, real_kmers[0])
     return launches, aligned[:16], pristine, finder, real_kmers[0]
 
@@ -1593,7 +1651,7 @@ def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
 
     from sina_tpu_torch import testing
     from sina_tpu_torch.align import AlignerConfig
-    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.ops import kernels, transfer
     from sina_tpu_torch.timing import _registry, get_timer, reset_all
 
     queries = [testing.unaligned_copy(q) for q in
@@ -1607,10 +1665,12 @@ def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     reset_all()
+    transfer.reset_counts()
     t0 = time.perf_counter()
     aligned += _run_batches(finder, batches[1:], acfg, dev)
     torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
+    report_transfers("phase 7", len(batches) - 1)
     launches = dict(kernels.launches)
     # the (N, M) buckets the dispatcher formed in the steady batches,
     # with their queries
@@ -1634,14 +1694,7 @@ def phase_graph_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
         f"buckets {launches['graph_dense_route']}; launches {launches}")
     busy, wall, per = device_busy(
         lambda: _run_batches(finder, batches[1:], acfg, dev))
-    if busy > 0:
-        say(f"phase 7 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
-            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
-        for ms, name in per[:8]:
-            say(f"  device {ms:9.3f} ms  {name[:90]}")
-    else:
-        say("phase 7 device busy: not measured (the profiler recorded "
-            "no device activity)")
+    report_busy("phase 7", busy, wall, per)
     return launches, aligned[:16], pristine
 
 
@@ -1654,7 +1707,7 @@ def phase_forbid_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
 
     from sina_tpu_torch import testing
     from sina_tpu_torch.align import AlignerConfig
-    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.ops import kernels, transfer
     from sina_tpu_torch.timing import _registry, reset_all
 
     queries = [testing.unaligned_copy(q) for q in
@@ -1668,10 +1721,12 @@ def phase_forbid_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     reset_all()
+    transfer.reset_counts()
     t0 = time.perf_counter()
     aligned += _run_batches(finder, batches[1:], acfg, dev)
     torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
+    report_transfers("phase 12", len(batches) - 1)
     launches = dict(kernels.launches)
     n_steady = N_FORBID_QUERIES - B_MAIN
     for name, t in _registry.items():
@@ -1695,14 +1750,7 @@ def phase_forbid_path(dev, tmp: Path, finder, db) -> tuple[dict, list, list]:
             lambda: _run_batches(finder, batches[1:], acfg, dev))
     say(f"phase 12 budgets of the real columns (second pass, {len(planes)} buckets): "
         f"{budget_classes(planes)}")
-    if busy > 0:
-        say(f"phase 12 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
-            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
-        for ms, name in per[:8]:
-            say(f"  device {ms:9.3f} ms  {name[:90]}")
-    else:
-        say("phase 12 device busy: not measured (the profiler recorded "
-            "no device activity)")
+    report_busy("phase 12", busy, wall, per)
     return launches, aligned[:16], pristine
 
 
@@ -1903,14 +1951,7 @@ def phase_turn_search(dev, finder, db):
     busy, wall, per = device_busy(lambda: _run_batches(
         tf, [again[i:i + B_MAIN] for i in range(0, len(again), B_MAIN)],
         AlignerConfig(), dev, searcher))
-    if busy > 0:
-        say(f"phase 10 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
-            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
-        for ms, name in per[:8]:
-            say(f"  device {ms:9.3f} ms  {name[:90]}")
-    else:
-        say("phase 10 device busy: not measured (the profiler recorded "
-            "no device activity)")
+    report_busy("phase 10", busy, wall, per)
     return out[:16], pristine[:16], tf, scfg
 
 
@@ -2136,7 +2177,7 @@ def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, lis
     from sina_tpu_torch import testing
     from sina_tpu_torch.align import AlignerConfig
     from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
-    from sina_tpu_torch.ops import kernels
+    from sina_tpu_torch.ops import kernels, transfer
     from sina_tpu_torch.timing import _registry, get_timer, reset_all
 
     t0 = time.perf_counter()
@@ -2160,10 +2201,12 @@ def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, lis
     t_warm = time.perf_counter() - t0
     buckets = get_timer("GraphDP").counts["launch"]
     reset_all()
+    transfer.reset_counts()
     t0 = time.perf_counter()
     aligned += _run_batches(finder, batches[1:], acfg, dev)
     torch.cuda.synchronize()
     t_steady = time.perf_counter() - t0
+    report_transfers("phase 18", len(batches) - 1)
     launches = dict(kernels.launches)
     buckets += get_timer("GraphDP").counts["launch"]
     shapes = {k: n for k, n in get_timer("GraphDP").counts.items() if k.startswith("bucket ")}
@@ -2189,15 +2232,117 @@ def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, lis
         f"{n_steady / t_steady:.2f} seq/s on {gpu_line()}; steady buckets (N x M: "
         f"queries) {shapes}; launches {launches}")
     busy, wall, per = device_busy(lambda: _run_batches(finder, batches[1:], acfg, dev))
-    if busy > 0:
-        say(f"phase 18 device busy: {busy:.3f} ms of {wall:.3f} ms wall "
-            f"({100 * busy / wall:.2f}%, torch.profiler, second pass)")
-        for ms, name in per[:8]:
-            say(f"  device {ms:9.3f} ms  {name[:90]}")
-    else:
-        say("phase 18 device busy: not measured (the profiler recorded "
-            "no device activity)")
+    report_busy("phase 18", busy, wall, per)
     return launches, aligned[:16], pristine, finder
+
+
+# the sleep kernel queued after a fetch in phase 19: longer than a
+# batch's finalize on the host (NAST finishing of 128 queries), 2 s or
+# more at the card's 1.98 GHz boost clock
+SLEEP_CYCLES = 4_000_000_000
+
+
+def phase_transfers(dev, tmp: Path, finder, db, dfinder, ddb) -> None:
+    """Phase 19: the transfers of the dispatch paths on a batch of 128
+    queries of each of phases 5, 12, 7 and 18 (made by their generator
+    and seeds: the profile, forbid, graph and dense routes).  On each
+    route famfinder's submit_batch and align_dispatch raise nothing
+    under torch.cuda.set_sync_debug_mode("error"), each profile launch
+    makes one host-to-device copy, and every buffer of the pinned pool
+    is pinned; on the profile and graph routes famfinder's fetch and
+    the aligner's finalize return while a sleep kernel queued after
+    each on the compute stream still runs, with records equal to the
+    run without the sleep."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig, align_dispatch, align_finalize
+    from sina_tpu_torch.ops import kernels, transfer
+    from sina_tpu_torch.timing import get_timer, reset_all
+
+    routes = (("profile", finder, db, 7, AlignerConfig()),
+              ("forbid", finder, db, 19, AlignerConfig(insertion="forbid")),
+              ("graph", finder, db, 11, AlignerConfig(engine="graph")),
+              ("dense", dfinder, ddb, 41, AlignerConfig(engine="graph")))
+    for route, ff, rdb, seed, acfg in routes:
+        made = testing.make_queries(rdb, n=2 * B_MAIN, seed=seed, branch_len=0.7)
+        batch = [testing.unaligned_copy(q) for q in made[B_MAIN:]]
+
+        def copies():
+            return [q.copy() for q in batch]
+
+        qw = copies()
+        fams = [r.family if not r.failed else [] for r in ff.process_batch(qw)]
+        want = align_finalize(align_dispatch(qw, [list(f) for f in fams], acfg, device=dev))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        reset_all()
+        transfer.reset_counts()
+        qs, qd = copies(), copies()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = ff.submit_batch(qs)
+            state = align_dispatch(qd, [list(f) for f in fams], acfg, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t_disp = time.perf_counter() - t0
+        ff.process_batch(qs, handle=handle)
+        align_finalize(state)
+        torch.cuda.synchronize()
+        launches = get_timer("ProfileDP").counts["launch"]
+        wires = get_timer("ProfileDP").counts["h2d"]
+        if route in ("profile", "forbid") and not (
+                launches and wires == launches and transfer.counts["h2d"] == 1 + launches):
+            raise AssertionError(f"phase 19 {route}: {transfer.counts['h2d']} host-to-device "
+                                 f"copies for {launches} profile launches and one famfinder "
+                                 f"upload, {wires} wires")
+        dense = kernels.launches["graph_dense_route"]
+        if (route == "dense") != (dense > 0):
+            raise AssertionError(f"phase 19 {route}: {dense} buckets on the dense route")
+        bufs = transfer.pool_buffers()
+        if not bufs or not all(b.is_pinned() for b in bufs):
+            raise AssertionError(f"phase 19 {route}: a pool buffer is not pinned")
+        say(f"phase 19 {route}: submit_batch and align_dispatch of {len(batch)} queries "
+            f"raised nothing under set_sync_debug_mode('error') ({1e3 * t_disp:.3f} ms of "
+            f"host time); {transfer.counts['h2d']} host-to-device copies ({launches} profile "
+            f"launches, one wire each: {wires}), {transfer.counts['d2h']} device-to-host; "
+            f"{dense} dense-route buckets; {len(bufs)} pool buffers, all pinned, "
+            f"{transfer.pool_bytes()} bytes")
+        if route not in ("profile", "graph"):
+            continue
+        qs = copies()
+        handle = ff.submit_batch(qs)
+        start, after = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        after.record()
+        t0 = time.perf_counter()
+        results = ff.process_batch(qs, handle=handle)
+        t_ff = time.perf_counter() - t0
+        ff_running = not after.query()
+        torch.cuda.synchronize()
+        sleep_ms = start.elapsed_time(after)
+        state = align_dispatch(qs, [r.family if not r.failed else [] for r in results],
+                               acfg, device=dev)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        after2 = torch.cuda.Event()
+        after2.record()
+        t0 = time.perf_counter()
+        got = align_finalize(state)
+        t_al = time.perf_counter() - t0
+        al_running = not after2.query()
+        torch.cuda.synchronize()
+        if not (ff_running and al_running):
+            raise AssertionError(f"phase 19 {route}: a fetch waited for the sleep queued "
+                                 f"after it (famfinder {ff_running}, aligner {al_running})")
+        if (fasta_text([a for a in got if a is not None], tmp / "t19_got.fasta")
+                != fasta_text([a for a in want if a is not None], tmp / "t19_want.fasta")):
+            raise AssertionError(f"phase 19 {route}: records differ from the run without the sleep")
+        say(f"phase 19 {route} ordering: famfinder's fetch returned after "
+            f"{1e3 * t_ff:.3f} ms and the aligner's finalize after {1e3 * t_al:.3f} ms, "
+            f"each while a {sleep_ms:.1f} ms sleep kernel queued after it still ran; "
+            f"records equal")
 
 
 def main() -> int:
@@ -2242,6 +2387,7 @@ def main() -> int:
         dlaunches, dgpu16, dqueries16, dfinder = phase_indel_path(dev, tmp, ddb, t_ddb)
         phase_cpu_parity(dfinder, dgpu16, dqueries16, tmp, AlignerConfig(engine="graph"),
                          "phase 18")
+        phase_transfers(dev, tmp, finder, db, dfinder, ddb)
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     launches.update({k: dlaunches[k] for k in ("graph_dp_dense", "graph_traceback_dense")})

@@ -30,7 +30,7 @@ from .timing import get_timer
 from .ops.graph import LinearGraph, build_graph
 
 from .ops import align_kernel as ak
-from .ops import kernels
+from .ops import kernels, transfer
 
 logger = logging.getLogger("sina.align")
 
@@ -890,7 +890,9 @@ class _StackArena:
     per dispatch made the host "stack" section swing with allocator
     behaviour (mmap, free, refault).  Banks are acquired per dispatch
     and released by that dispatch's finalize closure, so a buffer is
-    never refilled while a copy of it may still be pending."""
+    never refilled while a copy of it may still be pending.  For a
+    CUDA device the planes are pinned, lent by ops/transfer's pool to
+    the bank for as long as it keeps them."""
 
     def __init__(self):
         self._free: list[dict] = []
@@ -902,16 +904,20 @@ class _StackArena:
         self._free.append(bank)
 
     @staticmethod
-    def take(bank: dict, key: str, shape, dtype):
-        buf = bank.get(key)
-        if (
-            buf is None
-            or buf.shape != tuple(shape)
-            or buf.dtype != dtype
-        ):
-            buf = np.empty(shape, dtype)
-            bank[key] = buf
-        return buf
+    def take(bank: dict, key: str, shape, dtype, device: torch.device) -> torch.Tensor:
+        """The bank's `key` plane as a host tensor of `shape` and numpy
+        `dtype` (contents undefined), for data bound for `device`
+        (pinned on a CUDA device): the bank's own buffer where it is of
+        that kind and large enough, else a new one (the old one goes
+        back to the pool)."""
+        shape = tuple(shape)
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        held = bank.get(key)
+        if held is None or held[1] != device or held[0].numel() < nbytes:
+            if held is not None:
+                transfer.release(*held)
+            held = bank[key] = (transfer.host_buffer(nbytes, device), device)
+        return held[0][:nbytes].view(transfer.torch_dtype(dtype)).view(shape)
 
 
 _stack_arena = _StackArena()
@@ -957,17 +963,6 @@ def _dispatch_graph_bucket(
     # the bucket shapes formed, with their query counts
     tg.sections[f"bucket {npad}x{mpad}"] += 0.0
     tg.counts[f"bucket {npad}x{mpad}"] += len(items)
-    wmax = max(len(it[3]) for it in items)
-    cw_pad = np.ones((len(items), wmax), dtype=np.float32)
-    qm = np.zeros((len(items), mpad), dtype=np.uint8)
-    ql = np.zeros(len(items), dtype=np.int32)
-    nr = np.zeros(len(items), dtype=np.int32)
-    for b, it in enumerate(items):
-        _, q, graph, cw = it[:4]
-        qm[b, : len(q.masks)] = q.masks
-        ql[b] = len(q.masks)
-        nr[b] = graph.n_nodes
-        cw_pad[b, : len(cw)] = cw
     subst = None
     if cfg.use_subst_matrix:
         # experimental matrix scheme: per-family log-odds matrix from
@@ -996,34 +991,51 @@ def _dispatch_graph_bucket(
         width0 = items[0][2].width
         P = max(it[2].preds.shape[1] for it in items)
         P = -(-P // 4) * 4
+        wmax = max(len(it[3]) for it in items)
+        # the graph kernel when every predecessor is nearby in topological
+        # order: 0 < maxd < 32, the reference's window test
+        # (sina_tpu/align.py:1051); true of the repo's generated families,
+        # not of one with a member whose indel spans about 32 columns
+        maxd = max(_max_pred_distance(it[2]) for it in items)
+        k_ring = pick_k_ring(maxd) if maxd > 0 else 0
         bank = _stack_arena.acquire()
-        pos_s = _StackArena.take(bank, "pos", (B, npad), np.int32)
-        pos_s.fill(width0 - 1)
-        mask_s = _StackArena.take(bank, "mask", (B, npad), np.uint8)
-        mask_s.fill(0)
-        weight_s = _StackArena.take(
-            bank, "weight", (B, npad), np.float32
-        )
-        weight_s.fill(0)
-        preds_s = _StackArena.take(
-            bank, "preds", (B, npad, P), np.int32
-        )
-        preds_s.fill(-1)
-        start_s = _StackArena.take(bank, "start", (B, npad), bool)
-        start_s.fill(False)
-        end_s = _StackArena.take(bank, "end", (B, npad), bool)
-        end_s.fill(False)
-        need_budget = cfg.insertion == INSERTION_FORBID
-        if need_budget:
-            maxi_s = _StackArena.take(
-                bank, "maxi", (B, npad), np.int32
-            )
-            maxi_s.fill(0)
-        else:
-            maxi_s = None
-        maxd = 0
+
+        def take(key, shape, dtype, fill, upload=True):
+            # pinned where the plane crosses to the device; the graph
+            # kernel's route packs preds, start and end on the host
+            t = _StackArena.take(bank, key, shape, dtype,
+                                 device if upload else torch.device("cpu"))
+            t.numpy().fill(fill)
+            return t
+
+        # every query's column weights the shared ones (no positional
+        # variability filter): the plane is made on the device, no copy
+        ones = _ones_cw_cache.get(width0)
+        cw_t = (None if all(it[3] is ones for it in items)
+                else take("cw", (B, wmax), np.float32, 1))
+        qm_t = take("qm", (B, mpad), np.uint8, 0)
+        ql_t = take("ql", (B,), np.int32, 0)
+        nr_t = take("nr", (B,), np.int32, 0)
+        pos_t = take("pos", (B, npad), np.int32, width0 - 1)
+        mask_t = take("mask", (B, npad), np.uint8, 0)
+        weight_t = take("weight", (B, npad), np.float32, 0)
+        preds_t = take("preds", (B, npad, P), np.int32, -1, upload=not k_ring)
+        start_t = take("start", (B, npad), bool, False, upload=not k_ring)
+        end_t = take("end", (B, npad), bool, False, upload=not k_ring)
+        maxi_t = (take("maxi", (B, npad), np.int32, 0)
+                  if cfg.insertion == INSERTION_FORBID else None)
+        qm, ql, nr = (t.numpy() for t in (qm_t, ql_t, nr_t))
+        cw_pad = None if cw_t is None else cw_t.numpy()
+        pos_s, mask_s, weight_s, preds_s, start_s, end_s = (
+            t.numpy() for t in (pos_t, mask_t, weight_t, preds_t, start_t, end_t))
+        maxi_s = None if maxi_t is None else maxi_t.numpy()
         for b, it in enumerate(items):
-            g = it[2]
+            _, q, g, cw = it[:4]
+            qm[b, : len(q.masks)] = q.masks
+            ql[b] = len(q.masks)
+            nr[b] = g.n_nodes
+            if cw_pad is not None:
+                cw_pad[b, : len(cw)] = cw
             n = g.n_nodes
             pos_s[b, :n] = g.pos
             mask_s[b, :n] = g.mask
@@ -1033,19 +1045,15 @@ def _dispatch_graph_bucket(
             end_s[b, :n] = g.is_end
             if maxi_s is not None:
                 maxi_s[b, :n] = g.max_insert
-            maxd = max(maxd, _max_pred_distance(g))
-    # the graph kernel when every predecessor is nearby in topological
-    # order: 0 < maxd < 32, the reference's window test
-    # (sina_tpu/align.py:1051); true of the repo's generated families,
-    # not of one with a member whose indel spans about 32 columns
-    k_ring = pick_k_ring(maxd) if maxd > 0 else 0
 
     def up(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        """A bank plane (pinned on a CUDA device) or a numpy array on
+        the device, without blocking the host."""
+        return None if a is None else transfer.upload(a, device)
 
     if k_ring:
         with tg.section("pack"):
-            mask_u8, predbits, flags = pack_graph_host(
+            _, predbits, flags = pack_graph_host(
                 mask_s, preds_s, start_s, end_s, nr
             )
     else:
@@ -1060,38 +1068,42 @@ def _dispatch_graph_bucket(
         )
         kernels.launches["graph_dense_route"] += 1
     with tg.section("launch"):
+        cw_d = (torch.ones((B, wmax), dtype=torch.float32, device=device)
+                if cw_t is None else up(cw_t))
         if k_ring:
             flags_d = up(flags)
             bp, bj, bi, raw = graph_dp(
-                up(pos_s), up(mask_u8), up(weight_s), up(predbits),
-                flags_d, up(qm), up(ql), up(cw_pad),
-                None if maxi_s is None else up(maxi_s),
-                None if subst is None else up(subst),
+                up(pos_t), up(mask_t), up(weight_t), up(predbits),
+                flags_d, up(qm_t), up(ql_t), cw_d, up(maxi_t), up(subst),
                 params=params, k_ring=k_ring,
             )
             emit, done = graph_traceback(bp, bj, bi, flags_d)
         else:
-            preds_d, start_d = up(preds_s), up(start_s)
+            preds_d, start_d = up(preds_t), up(start_t)
             bp, bj, bi, raw = ak.graph_dp_dense(
-                up(pos_s), up(mask_s), up(weight_s), preds_d, start_d,
-                up(end_s), up(qm), up(ql), up(nr), up(cw_pad), params,
-                max_insert=None if maxi_s is None else up(maxi_s),
-                subst=None if subst is None else up(subst), maxd=maxd,
+                up(pos_t), up(mask_t), up(weight_t), preds_d, start_d,
+                up(end_t), up(qm_t), up(ql_t), up(nr_t), cw_d, params,
+                max_insert=up(maxi_t), subst=up(subst), maxd=maxd,
             )
             emit, done = ak.graph_traceback_dense(bp, bj, bi, preds_d, start_d)
-        # one (B, M+4) int32 result = one device-to-host copy
+        # one (B, M+4) int32 result = one device-to-host copy, started
+        # now on the copy stream (JAX: copy_to_host_async,
+        # sina_tpu/align.py:1106-1110)
         out = torch.cat(
             [emit, bj.to(torch.int32)[:, None], bi.to(torch.int32)[:, None],
              raw.view(torch.int32)[:, None], done[:, None]],
             dim=1,
         )
-        del bp
+        fetch = transfer.fetch_async(out)
+        del bp, out
 
     def finalize():
         with tg.section("fetch"):
-            packed = out.cpu().numpy()
-        # results fetched => every copy of this dispatch's plane
-        # buffers completed; safe to recycle the bank
+            packed = fetch.result()
+        # the copy's done event follows, on the copy stream, an event
+        # recorded on the compute stream after this bucket's uploads:
+        # no host-to-device copy is still reading the bank's planes,
+        # so the next bucket may refill them
         _stack_arena.release(bank)
         emit_h = packed[:, :-4]
         bj_h, bi_h = packed[:, -4], packed[:, -3]

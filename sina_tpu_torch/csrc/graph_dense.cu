@@ -937,7 +937,9 @@ extern "C" int sina_graph_dp_dense(const void* table, const void* qmask, const v
   a.match = match;
   a.mismatch = mismatch;
   const void* fn = kernel_for(p.lanes, aspace != 0);
-  if (p.dyn_smem > 48 * 1024) {
+  // a block gets 48 KB of shared memory, static and dynamic together,
+  // without opting in
+  if (p.dyn_smem + p.static_smem > 48 * 1024) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.dyn_smem);
     if (e != cudaSuccess) return (int)e;
   }

@@ -673,7 +673,9 @@ extern "C" int sina_graph_dp(const void* table, const void* qmask, const void* q
   a.match = match;
   a.mismatch = mismatch;
   const void* fn = kernel_for(p.lanes, p.shared_ring != 0);
-  if (p.dyn_smem > 48 * 1024) {
+  // a block gets 48 KB of shared memory, static and dynamic together,
+  // without opting in
+  if (p.dyn_smem + p.static_smem > 48 * 1024) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.dyn_smem);
     if (e != cudaSuccess) return (int)e;
   }

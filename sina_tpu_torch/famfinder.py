@@ -25,6 +25,7 @@ from .ops.kmer_index import KmerIndex, device_matrix
 from .refdb import ReferenceDb
 from .sequence import Sequence
 from .timing import get_timer
+from .ops import transfer
 from .ops.kmer_kernel import kmer_scores, score_topk as _score_topk_device
 from .ops.profile import _bucket_rows
 from .parallel.multihost import process_count
@@ -178,10 +179,12 @@ class FamFinder:
         return np.pad(kmers, ((0, B_pad - kmers.shape[0]), (0, 0)),
                       constant_values=self._matrix().shape[0] - 1)
 
-    def _sharded_topk(self, kmers: np.ndarray, k: int):
-        """The mesh's scoring + top-k of a row-bucketed batch: (vals,
-        ids), (B_pad, k) int32 tensors, not fetched."""
-        return sharded_search(self.mesh, k)(self._matrix(), self._pad_dp(kmers))
+    def _sharded_topk(self, kmers: np.ndarray, k: int) -> torch.Tensor:
+        """The mesh's scoring + top-k of a row-bucketed batch, packed
+        as score_topk packs it: (B_pad, 2k) int32 [values | ids] on the
+        merge device, not fetched."""
+        vals, ids = sharded_search(self.mesh, k)(self._matrix(), self._pad_dp(kmers))
+        return torch.cat([vals, ids], dim=1)
 
     @staticmethod
     def _pad_rows(kmers: np.ndarray, sink: int) -> np.ndarray:
@@ -197,7 +200,7 @@ class FamFinder:
         )
 
     def _upload(self, kmers: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(kmers)).to(self.device)
+        return transfer.upload(kmers, self.device)
 
     def score_batch(self, mask_list: list[np.ndarray]) -> np.ndarray:
         """Raw k-mer hit counts (B, n_seqs) for a batch of queries."""
@@ -239,11 +242,13 @@ class FamFinder:
             # row-bucket first, then (on a mesh) pad to a dp multiple
             kmers = self._pad_rows(kmers, P.shape[0] - 1)
             if self.mesh is not None:
-                vals, ids = (x.cpu().numpy()[:B] for x in self._sharded_topk(kmers, k))
+                packed = self._sharded_topk(kmers, k)
             else:
                 packed = _score_topk_device(P, self._upload(kmers), k)
-                packed = packed.cpu().numpy()
-                vals, ids = packed[:B, :k], packed[:B, k:]
+            # the turn check and the escalation wait for their scores
+            # at once (sina_tpu/famfinder.py:625-626)
+            packed = packed.cpu().numpy()
+            vals, ids = packed[:B, :k], packed[:B, k:]
             pad = ids >= self.index.n_seqs
             vals = np.where(pad, -1, vals)
             ids = np.where(pad, 0, ids)
@@ -579,10 +584,11 @@ class FamFinder:
         return uniq, inv
 
     def submit_batch(self, queries: list[Sequence]):
-        """Launch the device scoring + top-k for a batch WITHOUT
-        fetching (torch queues the kernels and returns), so callers
-        overlap it with other work; pass the handle to
-        process_batch(queries, handle=...)."""
+        """Launch the device scoring + top-k for a batch and start the
+        copy of its (B_pad, 2k) result to the host, WITHOUT waiting
+        (ops/transfer.fetch_async), so callers overlap it with other
+        work; pass the handle to process_batch(queries, handle=...),
+        whose fetch waits for this copy only."""
         cfg = self.cfg
         if not queries or cfg.turn != TURN_NONE:
             return None  # turn path fetches eagerly
@@ -599,11 +605,13 @@ class FamFinder:
         )
         with t.section("score dispatch"):
             if self.mesh is not None:
-                # the same handle protocol, so the 3-deep pipeline
-                # overlaps identically on a mesh
-                return (*self._sharded_topk(kmers, k0), len(uniq)), k0, inv
-            handle = _score_topk_device(P, self._upload(kmers), k0)
-        return handle, k0, inv
+                # the same handle, so the 3-deep pipeline overlaps
+                # identically on a mesh
+                packed = self._sharded_topk(kmers, k0)
+            else:
+                packed = _score_topk_device(P, self._upload(kmers), k0)
+            fetch = transfer.fetch_async(packed)
+        return fetch, k0, inv
 
     def process_batch(
         self, queries: list[Sequence], handle=None
@@ -616,16 +624,11 @@ class FamFinder:
         if B == 0:
             return []
         if handle is not None:
-            packed, k0, inv = handle
+            fetch, k0, inv = handle
             t = get_timer("Kmer Search")
             with t.section("fetch topk"):
-                if isinstance(packed, tuple):  # a mesh's (vals, ids, rows)
-                    dv, di, Bu = packed
-                    vals = dv.cpu().numpy()[:Bu]
-                    ids = di.cpu().numpy()[:Bu]
-                else:
-                    packed = packed.cpu().numpy()
-                    vals, ids = packed[:, :k0], packed[:, k0:]
+                packed = fetch.result()
+                vals, ids = packed[:, :k0], packed[:, k0:]
             with t.section("policy"):
                 pad = ids >= self.index.n_seqs
                 vals = np.where(pad, -1, vals)

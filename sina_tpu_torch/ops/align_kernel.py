@@ -32,6 +32,8 @@ oracle of the device walk.
 
 from __future__ import annotations
 
+import functools
+
 from dataclasses import dataclass
 
 import numpy as np
@@ -540,12 +542,19 @@ def graph_dp_dense_plan(M: int, aspace: bool, maxd: int,
     shared memory bytes a block, registers a thread, the rows of the
     shared-memory ring (the distances up to max(shared_rows, 1) are on
     chip) and the rows of the global scratch a query (maxd + 1 where
-    maxd is beyond the chip's rows, else 0)."""
-    out = kernels.plan(kernels.lib().sina_graph_dp_dense_plan, M, int(aspace), int(maxd),
-                       n=8, device=device)
+    maxd is beyond the chip's rows, else 0).  Queried once a shape and
+    device (graph_dp_dense needs it every launch)."""
+    return dict(_graph_dp_dense_plan(M, bool(aspace), int(maxd),
+                                     kernels.device_index(device)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _graph_dp_dense_plan(M: int, aspace: bool, maxd: int, index: int) -> tuple:
+    out = kernels.plan(kernels.lib().sina_graph_dp_dense_plan, M, int(aspace), maxd,
+                       n=8, device=torch.device("cuda", index))
     keys = ("lanes", "threads", "ring_row", "dyn_smem", "static_smem", "regs",
             "shared_rows", "scratch_rows")
-    return dict(zip(keys, out))
+    return tuple(zip(keys, out))
 
 
 def graph_traceback_dense(bp, best_j, best_i, preds, is_start):

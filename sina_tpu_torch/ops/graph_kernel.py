@@ -26,6 +26,8 @@ distance, 12 deletion opened, 13 insertion opened); emit (B, M) int32
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -429,12 +431,18 @@ def graph_dp_plan(M: int, k_ring: int, aspace: bool,
     thread, threads, whether the ring of k_ring node rows lives in
     shared memory (else the global-ring route), dynamic and static
     shared memory bytes a block, registers a thread, floats of global
-    ring scratch a query, and the deepest ring shared memory holds."""
-    lib = kernels.lib()
-    out = kernels.plan(lib.sina_graph_dp_plan, M, k_ring, int(aspace), n=8, device=device)
+    ring scratch a query, and the deepest ring shared memory holds.
+    Queried once a shape and device (graph_dp needs it every launch)."""
+    return dict(_graph_dp_plan(M, k_ring, bool(aspace), kernels.device_index(device)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _graph_dp_plan(M: int, k_ring: int, aspace: bool, index: int) -> tuple:
+    out = kernels.plan(kernels.lib().sina_graph_dp_plan, M, k_ring, int(aspace), n=8,
+                       device=torch.device("cuda", index))
     keys = ("lanes", "threads", "shared_ring", "dyn_smem", "static_smem",
             "regs", "scratch", "max_shared_ring")
-    return dict(zip(keys, out))
+    return tuple(zip(keys, out))
 
 
 def _walk(bp_b: np.ndarray, start_b: np.ndarray, j: int, i: int,

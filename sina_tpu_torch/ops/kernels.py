@@ -190,6 +190,16 @@ def plan(fn, *args: int, n: int, device: torch.device | None = None) -> list[int
     return list(out)
 
 
+def device_index(device: torch.device | None) -> int:
+    """The index of `device` (a CUDA device; by default the current
+    one): the key under which a wrapper caches a launch plan that it
+    needs at every launch (none of the plan functions of csrc/
+    synchronises; they read function and device attributes)."""
+    if device is None or device.index is None:
+        return torch.cuda.current_device()
+    return device.index
+
+
 def launch(name: str, fn, *args, device: torch.device) -> None:
     """Launch a kernel through its C entry point fn(*args, stream) on
     `device`, the device of its operands: with that device current and

@@ -1,16 +1,22 @@
 """Column-profile reference ("pseq") — host builders and the device
 dispatch of the profile chain DP.
 
-Port of sina_tpu/ops/profile.py.  The host builders (batched profile
+Port of sina_tpu/ops/profile.py.  The host builders (the per-family
+``build_profile`` and ``query_profile_weights``, the batched profile
 build, native quantised packing) are copied as they are: that module
 imports jax, so it cannot be reused by import.  The device half is
-torch: ``profile_dp_dispatch`` uploads one bucket, launches the fused
-DP (ops/profile_kernel.profile_dp) and the chain traceback, and
-returns a handle that ``profile_dp_fetch`` turns into numpy
-(emit, best_c, best_i, raw).
+torch: ``profile_dp_dispatch`` writes one bucket into one wire buffer
+(the JAX package's layout, with aligned segments), uploads it in one
+copy, launches the fused DP (ops/profile_kernel.profile_dp) and the
+chain traceback on views of it, and starts the result's copy to the
+host (ops/transfer); ``profile_dp_fetch`` waits for that copy and
+returns numpy (emit, best_c, best_i, raw); ``profile_dp_batch`` does
+both.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -19,6 +25,7 @@ from .. import alphabet
 from ..sequence import Sequence
 from ..timing import get_timer
 
+from . import transfer
 from .align_kernel import DpParams
 from .profile_kernel import chain_traceback, gap_scale as _gap_scale, profile_dp
 
@@ -28,6 +35,86 @@ _BASE_BITS = np.array(
     dtype=np.uint8,
 )
 
+
+
+@dataclass
+class Profile:
+    """One family's profile (sina_tpu/ops/profile.py:39-49)."""
+
+    cols: np.ndarray     # (C,) int32 occupied alignment columns
+    freqs: np.ndarray    # (C, 4) f32 base fractions (sum<=1)
+    gap_open: np.ndarray  # (C,) f32 gap-open fraction
+    gap_ext: np.ndarray   # (C,) f32 gap-extend fraction
+    width: int
+
+    @property
+    def n_cols(self) -> int:
+        return len(self.cols)
+
+
+def build_profile(family: list[Sequence]) -> Profile:
+    """Column sweep over one family (sina_tpu/ops/profile.py:52-103,
+    pseq.cpp:44-115): at each occupied column, 12/ambig points over
+    each present base's letters; an absent sequence contributes
+    gap-open points if present at the previous occupied column, else
+    gap-extend points (12 each).  The oracle of build_profiles_batch."""
+    width = family[0].width
+    n = len(family)
+    for s in family:
+        if s.width != width:
+            raise ValueError("family sequences differ in width")
+
+    all_pos = np.concatenate([s.positions for s in family])
+    all_mask = np.concatenate([s.masks for s in family]) & 0xF
+    seq_ids = np.repeat(
+        np.arange(n), [len(s.positions) for s in family]
+    )
+    amb = alphabet.AMBIG_ORDER[all_mask].astype(np.float64)
+    w = 12.0 / np.maximum(amb, 1)
+
+    pts = np.zeros((width, 4), dtype=np.float64)
+    for b in range(4):
+        has = (all_mask & _BASE_BITS[b]) != 0
+        pts[:, b] = np.bincount(
+            all_pos[has], weights=w[has], minlength=width
+        )
+    occupied = pts.sum(axis=1) > 0
+    cols = np.nonzero(occupied)[0].astype(np.int32)
+    C = len(cols)
+    col_index = np.full(width, -1, dtype=np.int64)
+    col_index[cols] = np.arange(C)
+
+    pres = np.zeros((n, C), dtype=bool)
+    pres[seq_ids, col_index[all_pos]] = True
+    prev = np.zeros((n, C), dtype=bool)
+    prev[:, 1:] = pres[:, :-1]
+    gapo = ((~pres) & prev).sum(axis=0).astype(np.float64)
+    gape = ((~pres) & ~prev).sum(axis=0).astype(np.float64)
+
+    total = pts[cols].sum(axis=1) + 12.0 * (gapo + gape)
+    total = np.maximum(total, 1e-9)
+    freqs = (pts[cols] / total[:, None]).astype(np.float32)
+    return Profile(
+        cols,
+        freqs,
+        (12.0 * gapo / total).astype(np.float32),
+        (12.0 * gape / total).astype(np.float32),
+        width,
+    )
+
+
+def query_profile_weights(qmask: np.ndarray) -> np.ndarray:
+    """(M, 4) f32: each query base spread over its IUPAC letters
+    (sina_tpu/ops/profile.py:383-393; base_profile(base_iupac),
+    pseq.h:66-86)."""
+    m = qmask & 0xF
+    amb = alphabet.AMBIG_ORDER[m].astype(np.float32)
+    w = 1.0 / np.maximum(amb, 1)
+    out = np.zeros((len(qmask), 4), dtype=np.float32)
+    for b in range(4):
+        has = (m & _BASE_BITS[b]) != 0
+        out[has, b] = w[has]
+    return out
 
 def _gather_family_arrays(seqs: list[Sequence]):
     """Fast path: when every sequence carries a `_flat_ref` stamp into
@@ -309,65 +396,117 @@ def _bucket_rows(n: int) -> int:
     return b
 
 
+# the wire's segments start at multiples of this many bytes: the kernels
+# read their operands 16 bytes at once, and the device copy of the wire
+# starts on an allocation boundary
+WIRE_ALIGN = 256
+
+
+def _wire_layout(B: int, U: int, C: int, M: int, dedup: bool,
+                 aspace: bool) -> tuple[dict[str, tuple[int, int]], int]:
+    """Byte (offset, length) of each segment of a profile launch's one
+    host-to-device buffer, and its total bytes.  The JAX package's
+    segments in its order, int32 ones first (its _wire_layout,
+    sina_tpu/ops/profile.py:735-748): lens (B, 2) int32 | fam_idx (B,)
+    int32 (dedup) | budget (B, C) int32 (aspace) | fgq (U, C, 6) uint8
+    | qmask (B, M) uint8; here each starts at a multiple of WIRE_ALIGN
+    bytes, the gaps zero."""
+    sizes = (("lens", B * 8), ("fam_idx", B * 4 if dedup else None),
+             ("budget", B * C * 4 if aspace else None), ("fgq", U * C * 6),
+             ("qmask", B * M))
+    segs, o = {}, 0
+    for name, n in sizes:
+        if n is not None:
+            segs[name] = (o, n)
+            o = -(-(o + n) // WIRE_ALIGN) * WIRE_ALIGN
+    return segs, o
+
+
+def _build_wire(wire: np.ndarray, segs: dict, fg, qmask, lens, fam_idx,
+                budget) -> None:
+    """Write one launch's inputs into `wire` (uint8, laid out by
+    _wire_layout for B_pad rows), padded as the JAX package's dispatch
+    pads them (sina_tpu/ops/profile.py:936-964): padding rows of lens
+    (1, 1), fam_idx 0 (dedup: they gather unique row 0), budget 0, fgq
+    and qmask zero (the rows of fgq past fg's)."""
+    B, M = qmask.shape
+    B_pad = segs["lens"][1] // 8
+
+    def seg(name, dtype, shape):
+        o, n = segs[name]
+        return wire[o:o + n].view(dtype).reshape(shape)
+
+    def put(dst, src, fill):
+        dst[: len(src)] = src
+        dst[len(src):] = fill
+
+    put(seg("lens", np.int32, (B_pad, 2)), lens, 1)
+    if fam_idx is not None:
+        put(seg("fam_idx", np.int32, (B_pad,)), fam_idx, 0)
+    C = fg.shape[1]
+    if budget is not None:
+        put(seg("budget", np.int32, (B_pad, C)), budget, 0)
+    put(seg("fgq", np.uint8, (segs["fgq"][1] // (6 * C), C, 6)), fg, 0)
+    put(seg("qmask", np.uint8, (B_pad, M)), qmask, 0)
+    ends = sorted(o + n for o, n in segs.values())
+    starts = sorted(o for o, _ in segs.values())[1:] + [len(wire)]
+    for e, nxt in zip(ends, starts):
+        wire[e:nxt] = 0
+
+
+def _split_wire(wire: torch.Tensor, segs: dict, C: int, M: int):
+    """The device's views of the wire's segments: (fgq (U, C, 6) uint8,
+    qmask (B, M) uint8, lens (B, 2) int32, fam_idx (B,) int32 or None,
+    budget (B, C) int32 or None), by narrow and a reinterpretation of
+    the bytes (the JAX package's static slices and bitcasts,
+    sina_tpu/ops/profile.py:751-799)."""
+    B = segs["lens"][1] // 8
+
+    def seg(name, dtype, shape):
+        if name not in segs:
+            return None
+        o, n = segs[name]
+        return wire.narrow(0, o, n).view(dtype).view(shape)
+
+    return (seg("fgq", torch.uint8, (segs["fgq"][1] // (6 * C), C, 6)),
+            seg("qmask", torch.uint8, (B, M)), seg("lens", torch.int32, (B, 2)),
+            seg("fam_idx", torch.int32, (B,)), seg("budget", torch.int32, (B, C)))
+
+
 def profile_dp_dispatch(
     fgq: np.ndarray, qmask: np.ndarray, qlen, c_real,
     params: DpParams, device: torch.device, fam_idx=None, budget=None,
 ):
     """Upload one bucket and launch the profile DP and its traceback
-    WITHOUT fetching (sina_tpu/ops/profile.py:910-1012, without the
-    TPU wire buffer and the XLA fallback): fgq (U, C, 6) uint8
-    quantised profiles, qmask (B, M) uint8, qlen/c_real (B,) numpy.
-    With `fam_idx` (B,) fgq holds the U <= B unique profiles and
-    query b aligns against row fam_idx[b] (the kernel gathers).
-    `budget` (B, C) int32, one row per query (also under fam_idx),
-    runs the bounded-insertion mode (--insertion forbid).  The batch
-    pads to _bucket_rows(B) with rows of lens (1, 1) and zero budgets;
-    dedup padding rows gather unique row 0.  Returns a handle for
-    profile_dp_fetch."""
+    WITHOUT waiting for them (sina_tpu/ops/profile.py:910-1012, without
+    the XLA fallback): fgq (U, C, 6) uint8 quantised profiles, qmask
+    (B, M) uint8, qlen/c_real (B,) numpy.  With `fam_idx` (B,) fgq
+    holds the U <= B unique profiles and query b aligns against row
+    fam_idx[b] (the kernel gathers).  `budget` (B, C) int32, one row
+    per query (also under fam_idx), runs the bounded-insertion mode
+    (--insertion forbid).  The batch pads to _bucket_rows(B) (see
+    _build_wire).  The host writes every input into one wire buffer,
+    pinned on a CUDA device, which crosses in one copy; the result's
+    copy to the host starts right after the launch.  Returns a handle
+    for profile_dp_fetch: (the device result (B_pad, M+3) int32, its
+    transfer.Fetch, B)."""
     t = get_timer("ProfileDP")
-    dedup = fam_idx is not None
+    device = torch.device(device)
+    B, M = qmask.shape
+    C = fgq.shape[1]
+    B_pad = _bucket_rows(B)
+    U = fgq.shape[0] if fam_idx is not None else B_pad
+    segs, nbytes = _wire_layout(B_pad, U, C, M, fam_idx is not None,
+                                budget is not None)
     with t.section("pack"):
-        fg = fgq
-        M = qmask.shape[1]
-        lens = np.stack(
-            [np.asarray(qlen), np.asarray(c_real)], axis=1
-        ).astype(np.int32)
-        B = qmask.shape[0]
-        B_pad = _bucket_rows(B)
-        if B_pad != B:
-            pad = B_pad - B
-            if dedup:
-                fam_idx = np.concatenate(
-                    [np.asarray(fam_idx, np.int32),
-                     np.zeros(pad, np.int32)]
-                )
-            else:
-                fg = np.concatenate(
-                    [fg, np.zeros((pad,) + fg.shape[1:], fg.dtype)]
-                )
-            qmask = np.concatenate(
-                [qmask,
-                 np.zeros((pad, M), dtype=np.asarray(qmask).dtype)]
-            )
-            lens = np.concatenate(
-                [lens, np.ones((pad, 2), dtype=np.int32)]
-            )
-            if budget is not None:
-                budget = np.concatenate(
-                    [budget, np.zeros((pad, fg.shape[1]), dtype=np.int32)]
-                )
+        wire = transfer.host_buffer(nbytes, device)
+        lens = np.stack([np.asarray(qlen), np.asarray(c_real)], axis=1)
+        _build_wire(wire.numpy(), segs, fgq, qmask, lens, fam_idx, budget)
     with t.section("h2d"):
-        def up(a, dtype):
-            return torch.from_numpy(
-                np.ascontiguousarray(a, dtype=dtype)
-            ).to(device)
-
-        fg_d = up(fg, np.uint8)
-        qm_d = up(qmask, np.uint8)
-        lens_d = up(lens, np.int32)
-        fi_d = up(fam_idx, np.int32) if dedup else None
-        bud_d = up(budget, np.int32) if budget is not None else None
+        wire_d = transfer.upload(wire, device)
+        transfer.release(wire, device)
     with t.section("launch"):
+        fg_d, qm_d, lens_d, fi_d, bud_d = _split_wire(wire_d, segs, C, M)
         bp, bc, bi, raw = profile_dp(fg_d, qm_d, lens_d, params, fi_d, bud_d)
         emit = chain_traceback(bp, bc, bi)
         # one (B_pad, M+3) int32 result = one device-to-host copy
@@ -376,14 +515,15 @@ def profile_dp_dispatch(
              raw.view(torch.int32)[:, None]],
             dim=1,
         )
-    return out, B
+        fetch = transfer.fetch_async(out)
+    return out, fetch, B
 
 
 def profile_dp_fetch(handle):
     """Fetch a profile_dp_dispatch result: numpy (emit (B, M),
-    best_c, best_i, raw)."""
-    out, B = handle
-    packed = out.cpu().numpy()[:B]
+    best_c, best_i, raw).  Waits for this launch's copy only."""
+    _, fetch, B = handle
+    packed = fetch.result()[:B]
     emit = packed[:, :-3]
     return (
         emit,
@@ -391,3 +531,14 @@ def profile_dp_fetch(handle):
         packed[:, -2],
         packed[:, -1].copy().view(np.float32),
     )
+
+
+def profile_dp_batch(freqs, gapcost, qmask, qlen, c_real, params: DpParams,
+                     budget=None, device: torch.device | str = "cuda"):
+    """Synchronous dispatch + fetch of unpacked profiles (freqs (B, C, 4)
+    f32, gapcost (B, C) f32; sina_tpu/ops/profile.py:1024-1035), on
+    `device`: numpy (emit, best_c, best_i, raw)."""
+    return profile_dp_fetch(profile_dp_dispatch(
+        _pack_fgq(freqs, gapcost, params), qmask, qlen, c_real, params,
+        device, budget=budget,
+    ))

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import transfer
 from ..ops.kmer_kernel import (
     GROUPED_MIN_WIDTH, grouped_top_k, kmer_scores, top_k_lowest_id,
 )
@@ -151,7 +152,8 @@ def shard_index_matrix(mesh: Mesh, P: np.ndarray) -> ShardedMatrix:
 def _row_batches(mesh: Mesh, kmers):
     """For each dp row this process serves: its slice of the batch
     (B/dp rows; B must split evenly) on each of the row's devices."""
-    kmers = torch.as_tensor(kmers, dtype=torch.int32)
+    if not isinstance(kmers, torch.Tensor):
+        kmers = np.ascontiguousarray(kmers, dtype=np.int32)
     dp = mesh.shape["dp"]
     if kmers.shape[0] % dp:
         raise ValueError(f"a batch of {kmers.shape[0]} does not split over dp={dp}")
@@ -159,7 +161,10 @@ def _row_batches(mesh: Mesh, kmers):
     out = []
     for r, devs in zip(mesh.rows, mesh.devices):
         part = kmers[r * b:(r + 1) * b]
-        on = {dev: part.to(dev) for dev in dict.fromkeys(devs)}
+        # host ids go up through pinned staging (ops/transfer), without
+        # blocking the host
+        on = {dev: part.to(dev, torch.int32) if isinstance(part, torch.Tensor)
+              else transfer.upload(part, dev) for dev in dict.fromkeys(devs)}
         out.append([on[dev] for dev in devs])
     return out
 

@@ -5,7 +5,8 @@ Port of sina_tpu/pipeline.py.  The pipeline pulls *batches* of queries
 so the two device stages (k-mer scoring and the alignment DP) run
 wide, in a 3-deep software pipeline over batches: famfinder scoring
 for batch N+1 is queued while batch N's DP runs and the host finishes
-batch N-1 (with the turn check, famfinder scores eagerly instead: its
+batch N-1, whose results were copied to the host as they came
+(ops/transfer) (with the turn check, famfinder scores eagerly instead: its
 orientations are scored, then the reoriented queries rescored).  Order
 is preserved by construction.  A multi-host run (``multihost``) joins a
 torch.distributed process group; each process reads its own
@@ -318,7 +319,11 @@ class Pipeline:
 
         # 3-stage software pipeline over batches (the batched analog
         # of the reference's TBB flow-graph overlap, sina.cpp:452-586;
-        # sina_tpu/pipeline.py:343-374)
+        # sina_tpu/pipeline.py:343-374): submit famfinder N+1, fetch
+        # famfinder N, dispatch N's DP, then finalize N-1.  Every fetch
+        # waits for its own copy only (ops/transfer: the copy starts on
+        # a copy stream at launch), so N-1's finish runs on the host
+        # while N's DP and N+1's scoring run on the card
         def submit(b):
             return (
                 b,

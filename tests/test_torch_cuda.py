@@ -904,6 +904,67 @@ def test_graph_dp_dense_raises_on_a_ring_too_shallow(cuda):
     assert "raised:" in res.stdout and "assert" in out, out
 
 
+# the first graph DP launches of a process, at shapes whose dynamic shared
+# memory fits 48 KB but not beside the kernel's static shared memory: a
+# launch there needs the opt-in, which no earlier launch has made
+_FIRST_LAUNCH = """
+import sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_cuda import _graph_bucket, _random_dag
+from sina_tpu_torch.ops import align_kernel as ak
+from sina_tpu_torch.ops import graph_kernel as gk
+from sina_tpu_torch.ops.align_kernel import DpParams
+
+dev = torch.device("cuda", 0)
+
+
+def edge(plan):
+    return plan["dyn_smem"] <= 48 * 1024 < plan["dyn_smem"] + plan["static_smem"]
+
+
+ops, _, width, k = _graph_bucket(7, 2, 3, 64)
+shape = next(((M, K) for M in range(64, 2049, 16) for K in range(k, 33)
+              if edge(gk.graph_dp_plan(M, K, False))), None)
+if shape is not None:
+    M, K = shape
+    ops, _, width, _ = _graph_bucket(7, 2, 3, M)
+    args = list(ops.values()) + [torch.ones((2, width))]
+    want = gk.graph_dp_plain(*args, params=DpParams(), k_ring=K)
+    got = gk.graph_dp(*[a.to(dev) for a in args], params=DpParams(), k_ring=K)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    print("graph_dp at", shape)
+ops, width, maxd, _ = _random_dag(5, 2, 60, 64, 4)
+shape = next(((M, d) for M in range(64, 2049, 16) for d in range(maxd, 61)
+              if edge(ak.graph_dp_dense_plan(M, False, d))), None)
+if shape is not None:
+    M, d = shape
+    ops, width, _, _ = _random_dag(5, 2, 60, M, 4)
+    args = [torch.from_numpy(a) for a in ops.values()] + [torch.ones((2, width))]
+    want = ak.graph_dp_dense(*args, DpParams(), maxd=d)
+    got = ak.graph_dp_dense(*[a.to(dev) for a in args], DpParams(), maxd=d)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    print("graph_dp_dense at", shape)
+"""
+
+
+def test_graph_dps_opt_in_beside_static_shared_memory(cuda):
+    """A process's first graph DP launch (and dense DP launch) at a
+    shape whose dynamic shared memory is at most 48 KB but more with
+    the static: the launcher opts in by the two together, so the
+    launch runs (it failed with "invalid argument" where only the
+    dynamic part was tested) and equals the plain version."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "graph_dp at" in res.stdout, res.stdout
+
+
 # (B, C, M): one query at sizes below one window, not multiples of it
 # (M % 4 != 0: byte copies); M % 16 != 0 (4-byte copies); the window
 # crossed in both directions, with 4-byte and with 16-byte copies
@@ -1041,3 +1102,131 @@ def test_famfinder_on_a_card_mesh_equals_its_cpu_copy(cuda):
     masks = [q.masks for q in qs]
     for a, b in zip(gf.score_topk(masks, 64), cf.score_topk(masks, 64)):
         np.testing.assert_array_equal(a, b)
+
+
+# -- transfers (ops/transfer): pinned staging, one upload a profile
+# launch, fetches that wait for their own copy only, no hidden
+# synchronisation on the dispatch paths
+
+
+def _transfer_case(engine: str, long_insertion: bool = False):
+    """A small reference, 16 queries and their famfinder families on the
+    card (FamFinder on `cuda`), and the aligner config of `engine`
+    (graph with a 40-base insertion in every other reference puts every
+    bucket on the dense route)."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
+
+    db = testing.make_reference(n_seqs=80, n_core=300, width=500, seed=5)
+    if long_insertion:
+        db = testing.with_long_insertion(db, 40, 2, seed=3)
+    qs = [testing.unaligned_copy(q) for q in testing.make_queries(db, n=16, seed=6,
+                                                                 branch_len=0.6)]
+    cfg = dict(profile=AlignerConfig(), forbid=AlignerConfig(insertion="forbid"),
+               graph=AlignerConfig(engine="graph"),
+               dense=AlignerConfig(engine="graph"))[engine]
+    ff = FamFinder(db, FamFinderConfig(fs_min=10, fs_max=10, fs_full_len=250,
+                                       fs_req_gaps=1), torch.device("cuda", 0))
+    return ff, qs, cfg
+
+
+def _families(ff, qs):
+    return [r.family if not r.failed else [] for r in ff.process_batch(qs)]
+
+
+def test_transfer_upload_and_fetch_are_pinned_and_counted(cuda):
+    from sina_tpu_torch.ops import transfer
+
+    transfer.reset_counts()
+    a = np.arange(3 * 70_000, dtype=np.int32).reshape(3, -1)
+    t = transfer.upload(a, cuda)
+    f = transfer.fetch_async(t * 3)
+    np.testing.assert_array_equal(f.result(), a * 3)
+    assert transfer.counts == {"h2d": 1, "d2h": 1}
+    bufs = transfer.pool_buffers()
+    assert bufs and all(b.is_pinned() for b in bufs)
+    with pytest.raises(ValueError, match="not pinned"):
+        transfer.upload(torch.zeros(4), cuda)
+
+
+def test_fetch_returns_while_later_work_runs(cuda):
+    """result() waits for its own copy only: a 0.5 s sleep kernel queued
+    after the fetch on the compute stream is still running when it
+    returns."""
+    from sina_tpu_torch.ops import transfer
+
+    x = torch.arange(1 << 20, dtype=torch.int32, device=cuda)
+    f = transfer.fetch_async(x * 2)
+    torch.cuda._sleep(int(1e9))
+    after = torch.cuda.Event()
+    after.record()
+    got = f.result()
+    assert not after.query()
+    np.testing.assert_array_equal(got, np.arange(1 << 20, dtype=np.int32) * 2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("engine", ["profile", "graph"])
+def test_batch_fetch_returns_while_later_work_runs(cuda, engine):
+    """A batch's famfinder and alignment fetches return while work
+    queued after them is still running; the records equal the CPU's."""
+    from sina_tpu_torch.align import align_dispatch, align_finalize
+
+    ff, qs, cfg = _transfer_case(engine)
+    handle = ff.submit_batch(qs)
+    torch.cuda._sleep(int(1e9))
+    after = torch.cuda.Event()
+    after.record()
+    results = ff.process_batch(qs, handle=handle)
+    assert not after.query()
+    torch.cuda.synchronize()
+    fams = [r.family if not r.failed else [] for r in results]
+    state = align_dispatch([q.copy() for q in qs], [list(f) for f in fams], cfg,
+                           device=cuda)
+    torch.cuda._sleep(int(1e9))
+    after = torch.cuda.Event()
+    after.record()
+    got = align_finalize(state)
+    assert not after.query()
+    torch.cuda.synchronize()
+    want = align_finalize(align_dispatch([q.copy() for q in qs], [list(f) for f in fams],
+                                         cfg, device="cpu"))
+    assert [None if a is None else a.get_aligned() for a in got] == \
+           [None if a is None else a.get_aligned() for a in want]
+
+
+@pytest.mark.parametrize("engine", ["profile", "forbid", "graph", "dense"])
+def test_dispatch_does_not_synchronise(cuda, engine):
+    """famfinder.submit_batch and align_dispatch of a batch raise
+    nothing under torch.cuda.set_sync_debug_mode("error"); each profile
+    launch makes one host-to-device copy; every staging buffer is
+    pinned."""
+    from sina_tpu_torch.align import align_dispatch, align_finalize
+    from sina_tpu_torch.ops import transfer
+    from sina_tpu_torch.timing import get_timer, reset_all
+
+    ff, qs, cfg = _transfer_case(engine, long_insertion=engine == "dense")
+    fams = _families(ff, qs)
+    align_finalize(align_dispatch(qs, [list(f) for f in fams], cfg, device=cuda))  # warm
+    kernels.reset_launches()
+    reset_all()
+    transfer.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = ff.submit_batch(qs)
+        state = align_dispatch(qs, [list(f) for f in fams], cfg, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ff.process_batch(qs, handle=handle)
+    align_finalize(state)
+    if engine in ("profile", "forbid"):
+        n = get_timer("ProfileDP").counts["launch"]
+        assert n > 0 and get_timer("ProfileDP").counts["h2d"] == n
+        # famfinder's ids and one wire a launch
+        assert transfer.counts["h2d"] == 1 + n
+    if engine == "dense":
+        assert kernels.launches["graph_dense_route"] == get_timer("GraphDP").counts["launch"] > 0
+    bufs = transfer.pool_buffers()
+    assert bufs and all(b.is_pinned() for b in bufs)

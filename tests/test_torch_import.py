@@ -44,6 +44,7 @@ PORT_MODULES = [
     "sina_tpu_torch.ops.graph_kernel",
     "sina_tpu_torch.ops.profile",
     "sina_tpu_torch.ops.profile_kernel",
+    "sina_tpu_torch.ops.transfer",
     "sina_tpu_torch.debug_dump",
     "sina_tpu_torch.parallel",
     "sina_tpu_torch.parallel.sharding",

@@ -180,3 +180,124 @@ def test_dispatch_pads_rows_and_fetches(dedup):
     got = profile_dp_fetch(handle)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a).view(np.int32), np.asarray(b).view(np.int32))
+
+
+# -- the per-family API (sina_tpu/ops/profile.py Profile, build_profile,
+# query_profile_weights), on the cases of tests/test_profile.py:24-62 and
+# tests/test_profile_batch_build.py
+
+
+def _both(name: str, aligned: str):
+    from sina_tpu.sequence import Sequence as JaxSequence
+    from sina_tpu_torch.sequence import Sequence as PortSequence
+
+    return JaxSequence.from_string(name, aligned), PortSequence.from_string(name, aligned)
+
+
+def _profiles_equal(got, want):
+    np.testing.assert_array_equal(got.cols, want.cols)
+    for a, b in ((got.freqs, want.freqs), (got.gap_open, want.gap_open),
+                 (got.gap_ext, want.gap_ext)):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    assert got.width == want.width and got.n_cols == want.n_cols
+
+
+def test_build_profile_semantics():
+    from sina_tpu.ops.profile import build_profile as jax_build_profile
+    from sina_tpu_torch.ops.profile import build_profile
+
+    ja, a = _both("a", "AG-CU")
+    jb, b = _both("b", "AGGC-")
+    p = build_profile([a, b])
+    _profiles_equal(p, jax_build_profile([ja, jb]))
+    assert p.cols.tolist() == [0, 1, 2, 3, 4]
+    assert p.freqs[0, 0] == pytest.approx(1.0)
+    total2 = 12 + 12  # one G + one gap-open
+    assert p.freqs[2, 1] == pytest.approx(12 / total2)
+    assert p.gap_open[2] == pytest.approx(12 / total2)
+    assert p.gap_open[4] > 0
+    with pytest.raises(ValueError):
+        build_profile([a, _both("c", "AG")[1]])
+
+
+@pytest.mark.parametrize("bases", ["AR", "ACGUNRYKMSWBDHV"])
+def test_query_profile_weights_ambig(bases):
+    from sina_tpu.ops.profile import query_profile_weights as jax_weights
+    from sina_tpu_torch.ops.profile import query_profile_weights
+
+    jq, q = _both("q", bases)
+    w = query_profile_weights(q.masks)
+    np.testing.assert_array_equal(w, jax_weights(jq.masks))
+    assert w[0].tolist() == [1, 0, 0, 0]
+    if bases == "AR":
+        assert w[1, 0] == pytest.approx(0.5) and w[1, 1] == pytest.approx(0.5)
+
+
+def _families(seed: int, n_fams: int):
+    """The JAX package's and the port's references from the same seed,
+    and random families of 3-11 of their sequences."""
+    from sina_tpu import testing as jax_testing
+    from sina_tpu_torch import testing as port_testing
+
+    jdb = jax_testing.make_reference(n_seqs=60, n_core=250, width=400, seed=seed)
+    db = port_testing.make_reference(n_seqs=60, n_core=250, width=400, seed=seed)
+    rng = np.random.default_rng(0)
+    fams = []
+    for _ in range(n_fams):
+        ids = rng.choice(len(db), size=rng.integers(3, 12), replace=False)
+        fams.append(ids)
+    return ([[jdb.sequences[int(i)] for i in f] for f in fams],
+            [[db.sequences[int(i)] for i in f] for f in fams])
+
+
+def test_batched_build_matches_single():
+    """tests/test_profile_batch_build.py on the port: the batched build
+    equals the per-family one, which equals the JAX package's."""
+    from sina_tpu.ops.profile import build_profile as jax_build_profile
+    from sina_tpu_torch.ops.profile import build_profile, build_profiles_batch
+
+    jfams, fams = _families(2, 5)
+    cpad = max(build_profile(f).n_cols for f in fams)
+    cpad = -(-cpad // 64) * 64
+    freqs, gapo, gape, cols = build_profiles_batch(fams, cpad)
+    for b, (jfam, fam) in enumerate(zip(jfams, fams)):
+        p = build_profile(fam)
+        _profiles_equal(p, jax_build_profile(jfam))
+        C = p.n_cols
+        assert np.array_equal(cols[b], p.cols)
+        np.testing.assert_allclose(freqs[b, :C], p.freqs, atol=1e-6)
+        np.testing.assert_allclose(gapo[b, :C], p.gap_open, atol=1e-6)
+        np.testing.assert_allclose(gape[b, :C], p.gap_ext, atol=1e-6)
+        assert (freqs[b, C:] == 0).all()
+
+
+def test_profile_alignment_realistic():
+    """tests/test_profile.py test_profile_alignment_realistic on the
+    port (profile engine, realign, the plain versions): each query's
+    bases come back in the reference's width, within the reference's
+    identity bar, and the aligned row equals the JAX package's."""
+    from sina_tpu import testing as jax_testing
+    from sina_tpu.align import AlignerConfig as JaxConfig
+    from sina_tpu.align import align_sequence as jax_align
+    from sina_tpu_torch import testing as port_testing
+    from sina_tpu_torch.align import AlignerConfig, align_sequence
+    from sina_tpu_torch.comparator import COVER_QUERY, IUPAC_EXACT, Comparator
+
+    jdb = jax_testing.make_reference(n_seqs=60, n_core=300, width=500, seed=9)
+    db = port_testing.make_reference(n_seqs=60, n_core=300, width=500, seed=9)
+    jqs = jax_testing.make_queries(jdb, n=4, seed=2, branch_len=0.4)
+    qs = port_testing.make_queries(db, n=4, seed=2, branch_len=0.4)
+    cmp_exact = Comparator(IUPAC_EXACT, "none", COVER_QUERY, False)
+    for jtrue, true_q in zip(jqs, qs):
+        pid = db.index_of(true_q.get_attr("parent"))
+        fam = [(1.0, db.sequences[(pid + k) % len(db)]) for k in range(12)]
+        jfam = [(1.0, jdb.sequences[(pid + k) % len(jdb)]) for k in range(12)]
+        out = align_sequence(port_testing.unaligned_copy(true_q), fam,
+                             AlignerConfig(realign=True, engine="profile"), device="cpu")
+        want = jax_align(jax_testing.unaligned_copy(jtrue), jfam,
+                         JaxConfig(realign=True, engine="profile"))
+        assert out is not None
+        assert out.get_bases().upper() == true_q.get_bases().upper()
+        assert cmp_exact(true_q, out) > 0.85
+        assert out.get_aligned() == want.get_aligned()
