@@ -127,9 +127,36 @@ Phases, each printing a line:
      one host-to-device copy (its wire), every buffer of the pinned pool
      is pinned; on the profile and graph routes famfinder's fetch and the
      aligner's finalize return while a sleep kernel queued after each
-     still runs, with records equal to the run without it.
+     still runs, with records equal to the run without it;
+ 20. the amplicon path (bench.py --amplicon's model) on phase 5's
+     reference, index and famfinder: 5,120 queries cut to 250 bases in
+     batches of 1,024 (the first warms up) with AlignerConfig() (the
+     profile engine, col-trim on from 1,024 occupied columns): steady
+     seq/s, launches, the device's busy share, device ms by kernel and
+     copy, the profile DP buckets, the rows on a trimmed column window
+     and the families built on a window in each batch (at least one
+     trimmed row a batch, >= 95% aligned), the host sections and the
+     pinned pool; the first 64 again on the cpu (identical records);
+     phase 3's checks at these shapes: the packed scorer on one steady
+     batch's ids (B = 1,024), the profile DP on the largest bucket's
+     launch inputs and the chain traceback on its plane, each exact
+     against its plain version, timed beside its bound; then 2,048 of the
+     amplicons with AlignerConfig(insertion="forbid") (full builds,
+     window-sliced rows budgeted to the next occupied column outside the
+     window) with the same lines and the budget classes, 16 on the cpu
+     (identical records), and the forbid DP exact on its largest launch;
+ 21. the accuracy suite through the CUDA kernels: every case of
+     tests/test_accuracy.py on the port's Pipeline (cuda, show_dist)
+     against a 5,000-sequence LTP-like bundle (testing.
+     make_reference_ltp), each held to that test's bars, with its
+     launches (graph_dense_route included); realign_k8 and
+     realign_nofast again on the cpu, whose per-query sps and cpm must
+     equal the card's as floats; then the seven cases of
+     tests/test_accuracy_multiseed.py (fresh fixture seeds, the profile
+     engine's worst case, divergent queries, partial-length reads) on
+     the port's famfinder and aligner (cuda) with that file's bars.
 
-Phases 5, 7, 12 and 18 also print their steady batches' copies (counts,
+Phases 5, 7, 12, 18 and 20 also print their steady batches' copies (counts,
 the host ms a batch of the upload and fetch sections) and, from the
 profiled second pass, each kind of copy's device ms; the device's busy
 ms there are the union of its activity intervals over the compute and
@@ -180,6 +207,14 @@ M_LONG = 2048
 # turn + search: 64 queries, each in the four orientations
 N_TURN = 64
 TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
+# the amplicon path (phase 20, bench.py --amplicon's model): 5,120
+# queries cut to 250 bases, in batches of 1,024 (the first warms up),
+# then 2,048 of them with --insertion forbid; the first 64 (16 for
+# forbid) again on the cpu
+N_AMPLICON, B_AMPLICON, AMPLICON_LEN = 5120, 1024, 250
+N_AMPLICON_FORBID, AMPLICON_TWINS, AMPLICON_FORBID_TWINS = 2048, 64, 16
+# the accuracy suite (phase 21): tests/test_accuracy.py's bundle
+N_LTP = 5000
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, at 700 W): device
 # memory bytes/s, and float32 operations/s outside the tensor cores (a
@@ -484,7 +519,7 @@ def phase_kernels(dev, db) -> dict:
     del scores, gmax
     ms = time_ms(lambda: kk.kmer_scores(P, kmers), 10)
     plain_ms = time_ms(lambda: kk.kmer_scores_plain(P, kmers), 2)
-    b = kmer_bound(kmers, KMER_SB)
+    b = kmer_bound(kmers, KMER_SB, KMER_ROWS - 1)
     out["kmer_score"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          **b, "library_ms": None}
     before = BEFORE_MS["kmer_score"]
@@ -692,15 +727,20 @@ def phase_forbid_kernel(dev, rng, db, fgq, qmask, lens, shift_ms: float) -> dict
             "plain_ms": plain_ms, **b, "library_ms": None}
 
 
-def kmer_bound(kmers, Sb: int) -> dict:
+def kmer_bound(kmers, Sb: int, sink: int) -> dict:
     """The bitpacked scorer's bound: the distinct rows of the batch (the
     sink row included) read once, the k-mer ids, the scores written
-    once; one add per query, k-mer and reference."""
+    once; one add per reference for each distinct row of a query but
+    the all-zero sink row `sink` (where famfinder's padding ids point;
+    a row a query holds twice is added once, times its count)."""
     import torch
 
     B, L = kmers.shape
     rows = int(torch.unique(kmers).numel())
-    return bound(rows * Sb + 4 * kmers.numel() + 4 * B * 8 * Sb, B * L * 8 * Sb)
+    s = kmers.sort(dim=1).values
+    distinct = (1 + (s[:, 1:] != s[:, :-1]).sum(dim=1) - (s == sink).any(dim=1).int())
+    return bound(rows * Sb + 4 * kmers.numel() + 4 * B * 8 * Sb,
+                 int(distinct.sum()) * 8 * Sb)
 
 
 def kmer_rows(kmers) -> str:
@@ -1582,22 +1622,24 @@ def first_scored_ids():
         raise AssertionError("the main path never called score_topk")
 
 
-def real_batch_scorer(P, kmers) -> None:
-    """The scorer on the ids of one steady batch of the main path: exact
+def real_batch_scorer(P, kmers, phase: str = "phase 5") -> dict:
+    """The scorer on the ids of one steady batch of a path: exact
     against its plain version, its rows, its bound and its time: 10
     launches back to back (CUDA events; the wrapper's host time shows
     where it is the longer), their kernels' own device time a launch
     (torch.profiler; a launch finds part of the last one's rows in L2),
     and one launch alone with L2 flushed before it, as a new batch of
-    the main path finds it (CUDA events, 10 launches), which the
-    bound's rate takes."""
+    the path finds it (CUDA events, 10 launches), which the bound's
+    rate takes; beside the plain version's time.  Returns the kernel
+    line's numbers (ms: the cold launch)."""
     import torch
 
     from sina_tpu_torch.ops import kmer_kernel as kk
 
     got = kk.kmer_scores(P, kmers)
     if not torch.equal(got, kk.kmer_scores_plain(P, kmers)):
-        raise AssertionError("kmer_score disagrees with its plain version on a real batch")
+        raise AssertionError(f"{phase}: kmer_score disagrees with its plain version on a "
+                             "real batch")
     del got
     def fn():
         return kk.kmer_scores(P, kmers)
@@ -1607,15 +1649,17 @@ def real_batch_scorer(P, kmers) -> None:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=P.device)
     cold = time_launch_ms(fn, 10, flush)
     del flush
-    b = kmer_bound(kmers, P.shape[1])
+    plain_ms = time_ms(lambda: kk.kmer_scores_plain(P, kmers), 1)
     sink = P.shape[0] - 1
+    b = kmer_bound(kmers, P.shape[1], sink)
     real = float((kmers != sink).sum(dim=1).float().mean())
-    say(f"phase 5 kmer_score on one steady batch's ids: B={kmers.shape[0]} "
+    say(f"{phase} kmer_score on one steady batch's ids: B={kmers.shape[0]} "
         f"L={kmers.shape[1]} ({real:.1f} real ids a query on average), Sb={P.shape[1]}; "
-        f"{kmer_rows(kmers)}; back to back {ms:.3f} ms a launch (device time "
-        f"{device_ms:.3f} ms), one launch alone cold {cold:.3f} ms; bound "
-        f"{b['bound_ms']:.3f} ms ({b['bound_by']}), {b['bound_ms'] / cold:.3f} of the "
-        f"bound's rate cold")
+        f"exact; {kmer_rows(kmers)}; back to back {ms:.3f} ms a launch (device time "
+        f"{device_ms:.3f} ms), one launch alone cold {cold:.3f} ms; plain {plain_ms:.3f} "
+        f"ms; bound {b['bound_ms']:.3f} ms ({b['bound_by']}), {b['bound_ms'] / cold:.3f} "
+        f"of the bound's rate cold")
+    return {"max_abs_err": 0, "ms": cold, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 def phase_cpu_parity(finder, gpu_records, queries, tmp: Path, acfg,
@@ -2345,6 +2389,483 @@ def phase_transfers(dev, tmp: Path, finder, db, dfinder, ddb) -> None:
             f"records equal")
 
 
+def amplicon_queries(db, n: int) -> list:
+    """bench.py --amplicon's queries (bench.py:136-143): make_queries
+    (seed 7, branch 0.7) made unaligned, each cut to the 250 bases from
+    min(400, (len - 250) // 2)."""
+    from sina_tpu_torch import testing
+
+    out = []
+    for q in testing.make_queries(db, n=n, seed=7, branch_len=0.7):
+        u = testing.unaligned_copy(q)
+        lo = min(400, max(0, len(u.masks) - AMPLICON_LEN) // 2)
+        u.masks = u.masks[lo:lo + AMPLICON_LEN]
+        u.positions = np.arange(len(u.masks), dtype=np.uint32)
+        u.width = len(u.masks)
+        out.append(u)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_amplicon_path():
+    """While open, records for each align_dispatch of the profile engine
+    (one a batch) its rows, the rows col-trim gave a column window, and
+    the families its profile builds took, whole or on a window; for each
+    profile DP launch its bucket (C, M, rows, unique rows under fam_idx,
+    the rows whose window fills the bucket); and the device inputs of
+    the largest launch (by rows x C x M), as the kernel got them."""
+    from sina_tpu_torch import align
+    from sina_tpu_torch.ops import profile as prof
+
+    rec = {"batches": [], "buckets": [], "largest": None}
+    trim, build = align._trim_windows, prof.build_profiles_packed_batch
+    dispatch, launch = prof.profile_dp_dispatch, prof.profile_dp
+
+    def trimming(todo, min_cols=0):
+        trim(todo, min_cols)
+        rec["batches"].append({"rows": len(todo), "families": 0, "windowed": 0,
+                               "trimmed": sum(1 for it in todo if it[8] != 0)})
+
+    def building(fams, C, params, windows=None):
+        b = rec["batches"][-1]
+        b["families"] += len(fams)
+        b["windowed"] += sum(w is not None for w in windows or ())
+        return build(fams, C, params, windows=windows)
+
+    def dispatching(fgq, qmask, qlen, c_real, params, device, fam_idx=None, budget=None):
+        B, M = qmask.shape
+        C = fgq.shape[1]
+        rec["buckets"].append((C, M, B, len(np.unique(fam_idx)) if fam_idx is not None else B,
+                               int((np.asarray(c_real) == C).sum())))
+        return dispatch(fgq, qmask, qlen, c_real, params, device, fam_idx=fam_idx,
+                        budget=budget)
+
+    def launching(fg, qm, lens, params, fam_idx=None, budget=None):
+        size = qm.shape[0] * fg.shape[1] * qm.shape[1]
+        if rec["largest"] is None or size > rec["largest"][0]:
+            rec["largest"] = (size, tuple(None if t is None else t.clone()
+                                          for t in (fg, qm, lens, fam_idx, budget)))
+        return launch(fg, qm, lens, params, fam_idx, budget)
+
+    align._trim_windows, prof.build_profiles_packed_batch = trimming, building
+    prof.profile_dp_dispatch, prof.profile_dp = dispatching, launching
+    try:
+        yield rec
+    finally:
+        align._trim_windows, prof.build_profiles_packed_batch = trim, build
+        prof.profile_dp_dispatch, prof.profile_dp = dispatch, launch
+
+
+def report_amplicon_path(phase: str, rec: dict, batches: int) -> None:
+    """Print what recorded_amplicon_path saw over `batches` steady
+    batches, the host sections of the amplicon path a batch and the
+    pinned pool; fail unless every batch held a row on a trimmed
+    window."""
+    from collections import Counter
+
+    from sina_tpu_torch.ops import transfer
+    from sina_tpu_torch.timing import get_timer
+
+    seen = rec["batches"]
+    if len(seen) != batches or not all(b["trimmed"] for b in seen):
+        raise AssertionError(f"{phase}: a steady batch without a row on a trimmed window "
+                             f"({seen})")
+    say(f"{phase} col trim: rows on a trimmed window a batch "
+        f"{[b['trimmed'] for b in seen]} of {[b['rows'] for b in seen]}; profile builds "
+        f"on a window {[b['windowed'] for b in seen]} of {[b['families'] for b in seen]} "
+        f"families")
+    launches, rows, unique, full = Counter(), Counter(), Counter(), Counter()
+    for C, M, B, U, f in rec["buckets"]:
+        launches[C, M] += 1
+        rows[C, M] += B
+        unique[C, M] += U
+        full[C, M] += f
+    say(f"{phase} profile DP buckets (C x M: launches, rows, unique rows under fam_idx, "
+        f"rows whose window fills C): " + "; ".join(
+            f"{C}x{M}: {launches[C, M]}, {rows[C, M]}, {unique[C, M]}, {full[C, M]}"
+            for C, M in sorted(launches)))
+    parts = []
+    for timer, section in (("Aligner", "col trim"), ("Aligner", "window calc"),
+                           ("Aligner", "build profile"), ("Aligner", "finish"),
+                           ("Kmer Search", "policy"), ("Kmer Search", "fetch topk")):
+        parts.append(f"{timer} {section} "
+                     f"{1e3 * get_timer(timer).sections[section] / batches:.1f}")
+    say(f"{phase} host ms a batch: {'; '.join(parts)}; pinned pool "
+        f"{transfer.pool_bytes()} bytes")
+
+
+def amplicon_run(phase: str, dev, tmp: Path, finder, queries, acfg, warm: bool):
+    """`queries` through _run_batches in batches of B_AMPLICON: with
+    `warm`, the first batch warms up and the rest are the steady run,
+    else all are.  Prints the rate, launches, host sections and device
+    busy share (a profiled second pass over the steady batches); fails
+    unless 95% aligned with valid records, every steady batch held a
+    trimmed row and every kernel of `path` launched.  Returns (records,
+    launches, recorded path, the first steady batch's k-mer ids)."""
+    import torch
+
+    from sina_tpu_torch.ops import kernels, transfer
+    from sina_tpu_torch.timing import reset_all
+
+    batches = [queries[i:i + B_AMPLICON] for i in range(0, len(queries), B_AMPLICON)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    aligned = _run_batches(finder, batches[:1], acfg, dev) if warm else []
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    steady = batches[1:] if warm else batches
+    reset_all()
+    transfer.reset_counts()
+    t0 = time.perf_counter()
+    with recorded_amplicon_path() as rec, first_scored_ids() as kmers:
+        aligned += _run_batches(finder, steady, acfg, dev)
+        torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    n_steady = sum(len(b) for b in steady)
+    report_transfers(phase, len(steady))
+    report_amplicon_path(phase, rec, len(steady))
+    out = tmp / f"{phase.replace(' ', '_')}.fasta"
+    fasta_text([a for a in aligned if a is not None], out)
+    n_ok = check_records(out, queries, WIDTH)
+    if n_ok < 0.95 * len(queries):
+        raise AssertionError(f"{phase}: only {n_ok} of {len(queries)} amplicons aligned")
+    path = FORBID_PATH if acfg.insertion == "forbid" else PROFILE_PATH
+    missing = [k for k in path if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: kernels never launched: {missing}")
+    say(f"{phase} amplicons: {n_ok}/{len(queries)} aligned, width {WIDTH}, bases "
+        f"preserved, columns increasing; "
+        + (f"warmup batch {t_warm:.2f}s; " if warm else "")
+        + f"{'steady ' if warm else ''}{n_steady} seqs in {len(steady)} batches of "
+        f"{B_AMPLICON} in {t_steady:.3f}s = {n_steady / t_steady:.2f} seq/s on "
+        f"{gpu_line()}; launches {launches}")
+    busy, wall, per = device_busy(lambda: _run_batches(finder, steady, acfg, dev))
+    report_busy(phase, busy, wall, per)
+    return aligned, launches, rec, kmers[0]
+
+
+def phase_amplicon_path(dev, tmp: Path, finder, db) -> dict:
+    """The reference's amplicon operating point (bench.py --amplicon) on
+    phase 5's reference, index and famfinder: 5,120 250-nt amplicons in
+    batches of 1,024 with AlignerConfig() (col-trim on, the 1,024-column
+    gate), the first 64 again on the cpu; then 2,048 of them with
+    AlignerConfig(insertion="forbid") (two steady batches, the trimmed
+    windows' last slot budgeted to the next occupied column outside),
+    the first 16 again on the cpu; then phase 3's checks on the inputs
+    the shift run gave its kernels.  Returns the amplicon kernel rows."""
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.align import AlignerConfig
+
+    t0 = time.perf_counter()
+    queries = amplicon_queries(db, N_AMPLICON)
+    twins = [testing.unaligned_copy(q) for q in queries[:AMPLICON_TWINS]]
+    forbid = [testing.unaligned_copy(q) for q in queries[:N_AMPLICON_FORBID]]
+    forbid_twins = [testing.unaligned_copy(q) for q in forbid[:AMPLICON_FORBID_TWINS]]
+    lens = [len(q.masks) for q in queries]
+    say(f"phase 20 setup: {N_AMPLICON} amplicons of {min(lens)}-{max(lens)} nt in "
+        f"{time.perf_counter() - t0:.1f}s")
+    acfg = AlignerConfig()
+    aligned, _, rec, kmers = amplicon_run("phase 20", dev, tmp, finder, queries, acfg,
+                                          warm=True)
+    phase_cpu_parity(finder, aligned[:AMPLICON_TWINS], twins, tmp, acfg, "phase 20")
+    rows = phase_amplicon_kernels(finder._matrix(), kmers, rec["largest"][1])
+    facfg = AlignerConfig(insertion="forbid")
+    with recorded_budgets() as planes:
+        faligned, _, frec, _ = amplicon_run("phase 20 forbid", dev, tmp, finder, forbid,
+                                            facfg, warm=False)
+    say(f"phase 20 forbid budgets of the real columns (both passes, {len(planes)} "
+        f"buckets): {budget_classes(planes)}")
+    phase_cpu_parity(finder, faligned[:AMPLICON_FORBID_TWINS], forbid_twins, tmp, facfg,
+                     "phase 20 forbid")
+    rows.update(amplicon_dp_check("phase 20 forbid", frec["largest"][1]))
+    say(f"phase 20 amplicon kernel rows: {json.dumps(rows)}")
+    return rows
+
+
+def amplicon_dp_check(phase: str, inputs) -> dict:
+    """The profile DP (its forbid mode where the launch had budgets) and
+    the chain traceback on one real amplicon launch's device inputs:
+    exact against their plain versions, timed by CUDA events beside
+    their bounds, counted as phase 3 counts them."""
+    import torch
+
+    from sina_tpu_torch.ops import profile_kernel as pk
+    from sina_tpu_torch.ops.align_kernel import DpParams
+
+    fg, qm, ln, fi, bud = inputs
+    params = DpParams()
+    name = "profile_dp" if bud is None else "profile_dp_forbid"
+    got = pk.profile_dp(fg, qm, ln, params, fam_idx=fi, budget=bud)
+    ref = pk.profile_dp_plain(fg, qm, ln, params, fam_idx=fi, budget=bud)
+    for n, a, b in zip(("bp", "best_c", "best_i", "raw"), got, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{phase}: {name} {n} disagrees with its plain version "
+                                 f"on a real amplicon bucket ({int((a != b).sum())} cells)")
+    ms = time_ms(lambda: pk.profile_dp(fg, qm, ln, params, fam_idx=fi, budget=bud), DP_REPS)
+    plain_ms = time_ms(lambda: pk.profile_dp_plain(fg, qm, ln, params, fam_idx=fi,
+                                                   budget=bud), 1)
+    lens = ln.cpu().numpy()
+    B, M = qm.shape
+    U, C = fg.shape[:2]
+    nbytes = (fg.numel() + qm.numel() + 4 * ln.numel() + B * C * M + 12 * B
+              + (0 if fi is None else 4 * fi.numel()) + (0 if bud is None else 4 * bud.numel()))
+    if bud is None:
+        ql, cr = lens[:, 0].astype(np.int64), lens[:, 1].astype(np.int64)
+        counts = (int((ql * cr).sum()), int(cr.sum()), int(ql.sum()))
+        per = (PROFILE_INSTS_PER_CELL, PROFILE_INSTS_PER_COLUMN, PROFILE_INSTS_PER_POSITION)
+        insts = tuple(sum(n * p[k] for n, p in zip(counts, per)) for k in (0, 1))
+        cells = counts[0]
+    else:
+        insts, cells = forbid_insts(lens, bud.cpu().numpy(), M)
+    b = bound(nbytes, insts=insts)
+    real = int((lens[:, 0] > 0).sum())
+    say(f"{phase} {name} on the largest amplicon bucket's launch: B={B} ({real} real rows) "
+        f"U={U} C={C} M={M}; bp/best_c/best_i/raw exact; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {cells} cells, "
+        f"{insts[0]} instructions, {insts[1]} integer), {b['bound_ms'] / ms:.3f} of the "
+        f"bound's rate; launch plan {pk.profile_dp_plan(M, forbid=bud is not None)}")
+    row = {"max_abs_err": float((got[3] - ref[3]).abs().max()), "ms": ms,
+           "plain_ms": plain_ms, **b, "library_ms": None}
+    if bud is not None:
+        return {name: row}
+    bp, bc, bi, _ = got
+    emit = pk.chain_traceback(bp, bc, bi)
+    steps = np.zeros(B, np.int64)
+    if not torch.equal(emit, pk.chain_traceback_plain(bp, bc, bi, steps=steps)):
+        raise AssertionError(f"{phase}: chain_traceback disagrees with its plain version on "
+                             "a real amplicon plane")
+    tb_ms = time_ms(lambda: pk.chain_traceback(bp, bc, bi), TB_REPS)
+    tb_plain = time_ms(lambda: pk.chain_traceback_plain(bp, bc, bi), 1)
+    tb = traceback_bound(emit, 1)
+    say(f"{phase} chain_traceback on that plane: emit exact; kernel {tb_ms:.3f} ms, plain "
+        f"{tb_plain:.3f} ms, bound {tb['bound_ms']:.5f} ms ({tb['bound_by']}); longest "
+        f"walk {int(steps.max())} steps; launch plan {pk.chain_traceback_plan(bp)}")
+    return {name: row, "chain_traceback": {"max_abs_err": 0, "ms": tb_ms,
+                                           "plain_ms": tb_plain, **tb, "library_ms": None}}
+
+
+def phase_amplicon_kernels(P, kmers, inputs) -> dict:
+    """Phase 3's checks at the amplicon path's shapes, on phase 20's
+    inputs: the packed scorer on the ids of its first steady batch (B =
+    1,024), the profile DP on its largest bucket's launch and the chain
+    traceback on that plane, each exact against its plain version and
+    timed beside its bound."""
+    rows = {"kmer_score": real_batch_scorer(P, kmers, "phase 20 (phase 3 at amplicon shapes)")}
+    rows.update(amplicon_dp_check("phase 20 (phase 3 at amplicon shapes)", inputs))
+    return rows
+
+
+# tests/test_accuracy.py:65-149, each case's configuration and bars: a
+# bar is (metric, op, value), op one of "==", ">", "<", "~" (within
+# 1e-6 of the value, as pytest.approx; "~idty" within 1e-6 absolute)
+# and "in" (value a pair, strictly between)
+ACCURACY_CASES = [
+    ("prealigned", dict(prealigned=True),
+     [("n_aligned", "==", 48), ("avg_sps", "~", 1.0), ("avg_cpm", "~", 0.0)]),
+    ("align_copy", dict(step=1000),
+     [("n_aligned", "==", 5), ("avg_sps", "~", 1.0), ("avg_idty", "~idty", 1.0)]),
+    ("realign", dict(realign=True, engine="graph"),
+     [("n_aligned", "==", 48), ("avg_sps", ">", 0.996), ("avg_cpm", "<", 0.0002),
+      ("avg_idty", ">", 0.96)]),
+    ("realign_leave_query_out", dict(realign=True, fs_leave_query_out=True, engine="graph"),
+     [("avg_sps", ">", 0.996), ("avg_cpm", "<", 0.00025), ("avg_idty", ">", 0.96)]),
+    ("realign_profile_engine", dict(realign=True, engine="profile"),
+     [("avg_sps", ">", 0.996), ("avg_cpm", "<", 0.0005), ("avg_idty", ">", 0.96)]),
+    ("realign_k8", dict(realign=True, fs_leave_query_out=True, fs_kmer_len=8,
+                        engine="graph"),
+     [("avg_sps", ">", 0.996), ("avg_cpm", "<", 0.0002), ("avg_idty", ">", 0.96)]),
+    ("realign_nofast", dict(realign=True, fs_leave_query_out=True, fs_no_fast=True,
+                            engine="graph"),
+     [("avg_sps", ">", 0.996), ("avg_cpm", "<", 0.00015), ("avg_idty", ">", 0.96)]),
+] + [
+    (f"realign_msc_capped[{cap}]", dict(realign=True, fs_leave_query_out=True,
+                                        fs_msc_max=cap, engine="graph"),
+     [("n_aligned", "==", 48), ("avg_sps", ">", sps_min), ("avg_cpm", "<", cpm_max),
+      ("avg_idty", "in", (idty_lo, idty_hi))])
+    # test_accuracy.py MSC_BARS: cap, sps_min, cpm_max, idty window
+    for cap, sps_min, cpm_max, idty_lo, idty_hi in (
+        (0.9, 0.99, 0.001, 0.88, 0.90), (0.8, 0.97, 0.002, 0.78, 0.80),
+        (0.7, 0.95, 0.010, 0.68, 0.70))
+]
+# the cases whose per-query sps and cpm must be equal on the card and on
+# the cpu
+ACCURACY_TWINS = ("realign_k8", "realign_nofast")
+
+
+def holds(value, op: str, want) -> bool:
+    if op == "==":
+        return value == want
+    if op == ">":
+        return value > want
+    if op == ">=":
+        return value >= want
+    if op == "<":
+        return value < want
+    if op == "~":
+        return abs(value - want) <= max(1e-6 * abs(want), 1e-12)
+    if op == "~idty":
+        return abs(value - want) <= 1e-6
+    return want[0] < value < want[1]
+
+
+def check_bars(case: str, got: dict, bars) -> str:
+    """Each bar of `bars` held by `got` (a name to value map); returns
+    every value of `got` printed, each beside its bars; fails naming the
+    first bar that does not hold."""
+    for metric, op, want in bars:
+        if not holds(got[metric], op, want):
+            raise AssertionError(f"phase 21 {case}: {metric} = {got[metric]!r} misses its "
+                                 f"bar {op} {want}")
+    return ", ".join(
+        f"{metric} {v!r}" + "".join(f" ({op} {want})" for m, op, want in bars if m == metric)
+        for metric, v in got.items())
+
+
+@contextlib.contextmanager
+def per_query_dist():
+    """While open, keeps each query's sps and cpm as the stats printer
+    computes them (the floats its show_dist log records carry, as
+    `{"sps": [...], "cpm": [...]}`); the records go nowhere else."""
+    import logging
+
+    got = {"sps": [], "cpm": []}
+    keys = {"orig_idty: %.6f": "sps", "cpm: %.6f": "cpm"}
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            if record.msg in keys:
+                got[keys[record.msg]].append(record.args[0])
+
+    log = logging.getLogger("sina.stats")
+    handler, level, propagate = Keep(logging.INFO), log.level, log.propagate
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    try:
+        yield got
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+        log.propagate = propagate
+
+
+def accuracy_run(bundle: str, device: str, step: int = 104, **kw) -> tuple[dict, dict]:
+    """tests/test_accuracy.py's run() on the port's Pipeline on `device`:
+    show_dist, every `step`-th sequence of the bundle realigned against
+    it in batches of 48; returns the run's summary and the per-query sps
+    and cpm."""
+    from sina_tpu_torch.align import AlignerConfig
+    from sina_tpu_torch.famfinder import FamFinderConfig
+    from sina_tpu_torch.pipeline import Pipeline, PipelineConfig
+
+    fam = FamFinderConfig(fs_full_len=1200, fs_req_gaps=1,
+                          fs_kmer_len=kw.pop("fs_kmer_len", 10),
+                          fs_no_fast=kw.pop("fs_no_fast", False),
+                          fs_leave_query_out=kw.pop("fs_leave_query_out", False),
+                          fs_msc_max=kw.pop("fs_msc_max", 2.0))
+    ali = AlignerConfig(realign=kw.pop("realign", False), engine=kw.pop("engine", "auto"))
+    cfg = PipelineConfig(in_path=bundle, db=bundle, outputs=[], show_dist=True,
+                         select_step=step, famfinder=fam, aligner=ali, batch_size=48,
+                         device=device, **kw)
+    with per_query_dist() as per:
+        summary = Pipeline(cfg).run()
+    return summary, per
+
+
+# tests/test_accuracy_multiseed.py's cases: (name, fixture, metric, bars)
+MULTISEED_CASES = [
+    *[(f"fresh_seed[{seed}]", ("ltp", seed), ("realign", "graph"),
+       [("n", ">=", 40), ("mean sps", ">", 0.996), ("mean cpm", "<", 0.0003),
+        ("min sps", ">", 0.99), ("max cpm", "<", 0.003)]) for seed in (777, 2024)],
+    ("worst_case_profile_engine", ("ltp", 777), ("realign", "profile"),
+     [("mean sps", ">", 0.996), ("min sps", ">", 0.985), ("max cpm", "<", 0.005)]),
+    *[(f"divergent[{seed}]", ("small", seed), ("divergent", "graph"),
+       [("mean sps", ">", 0.975), ("min sps", ">", 0.95)]) for seed in (11, 12)],
+    *[(f"partial_length[{seed}]", ("small", seed), ("partial", "graph"),
+       [("mean sps", ">", 0.97), ("min sps", ">", 0.90)]) for seed in (11, 12)],
+]
+
+
+def multiseed_metrics(db, kind: str, engine: str, seed: int, device) -> dict:
+    """One multiseed case's per-query metrics on `device`, summarised as
+    its bars read them."""
+    from sina_tpu_torch import testing
+
+    cpm = None
+    if kind == "realign":
+        sps, cpm = testing.realign_metrics(db, engine=engine, device=device)
+    elif kind == "divergent":
+        truths = testing.make_queries(db, n=40, seed=seed + 1, branch_len=1.4)
+        sps = testing.align_vs_truth(db, [testing.unaligned_copy(q) for q in truths],
+                                     truths, engine, device)
+    else:
+        reads, truths = testing.partial_reads(db, seed)
+        sps = testing.align_vs_truth(db, reads, truths, engine, device)
+    got = {"n": len(sps), "mean sps": float(sps.mean()), "min sps": float(sps.min())}
+    if cpm is not None:
+        got.update({"mean cpm": float(cpm.mean()), "max cpm": float(cpm.max())})
+    return got
+
+
+def phase_accuracy(dev, tmp: Path) -> None:
+    """The JAX package's accuracy suite through the CUDA kernels: every
+    case of tests/test_accuracy.py on the port's Pipeline (cuda) against
+    the generated LTP-like bundle, each with its own bars, and
+    realign_k8 and realign_nofast again on the cpu, whose per-query sps
+    and cpm must equal the card's; then the seven cases of
+    tests/test_accuracy_multiseed.py on the port's famfinder and aligner
+    (cuda) with that file's bars, per-query floors included."""
+    import torch
+
+    from sina_tpu_torch import testing
+    from sina_tpu_torch.ops import kernels
+
+    t_phase = t0 = time.perf_counter()
+    bundle = str(tmp / "ltp.sref")
+    testing.make_reference_ltp(N_LTP, seed=1234).save(bundle)
+    say(f"phase 21 setup: {N_LTP}-sequence LTP-like bundle in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for case, kw, bars in ACCURACY_CASES:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary, per = accuracy_run(bundle, str(dev), **dict(kw))
+        torch.cuda.synchronize()
+        got = {k: summary[k] for k in ("n_aligned", "avg_sps", "avg_cpm", "avg_idty")}
+        took = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items()
+                    if v or k == "graph_dense_route"}
+        say(f"phase 21 {case}: {check_bars(case, got, bars)}; launches {launches}; "
+            f"{took:.1f}s")
+        if case in ACCURACY_TWINS:
+            t0 = time.perf_counter()
+            _, cper = accuracy_run(bundle, "cpu", **dict(kw))
+            if cper != per or not per["sps"]:
+                raise AssertionError(f"phase 21 {case}: per-query sps/cpm differ between "
+                                     f"the card and the cpu")
+            say(f"phase 21 {case} parity: {len(per['sps'])} queries' sps and "
+                f"{len(per['cpm'])} cpm equal on cpu and gpu, as floats "
+                f"({time.perf_counter() - t0:.1f}s on the cpu)")
+    dbs = {}
+    for case, (fixture, seed), (kind, engine), bars in MULTISEED_CASES:
+        if (fixture, seed) not in dbs:
+            dbs[fixture, seed] = (testing.make_reference_ltp(3000, seed=seed)
+                                  if fixture == "ltp" else
+                                  testing.make_reference(n_seqs=1000, n_core=1200,
+                                                         width=2000, seed=seed))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = multiseed_metrics(dbs[fixture, seed], kind, engine, seed, dev)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items()
+                    if v or k == "graph_dense_route"}
+        say(f"phase 21 multiseed {case}: {check_bars(case, got, bars)}; launches "
+            f"{launches}; {time.perf_counter() - t0:.1f}s")
+    say(f"phase 21 accuracy: {len(ACCURACY_CASES)} cases of tests/test_accuracy.py and "
+        f"{len(MULTISEED_CASES)} of tests/test_accuracy_multiseed.py held their bars on "
+        f"the card in {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     import torch
 
@@ -2388,6 +2909,9 @@ def main() -> int:
         phase_cpu_parity(dfinder, dgpu16, dqueries16, tmp, AlignerConfig(engine="graph"),
                          "phase 18")
         phase_transfers(dev, tmp, finder, db, dfinder, ddb)
+        del dfinder, ddb
+        phase_amplicon_path(dev, tmp, finder, db)
+        phase_accuracy(dev, tmp)
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     launches.update({k: dlaunches[k] for k in ("graph_dp_dense", "graph_traceback_dense")})

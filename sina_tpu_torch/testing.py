@@ -504,6 +504,85 @@ def unaligned_copy(seq: Sequence) -> Sequence:
     )
 
 
+# The realign-accuracy metrics of the reference's show_dist
+# (log.cpp:279-325): sps, the exact-IUPAC identity of a realigned query
+# with its original alignment, and cpm, the drop in identity with the
+# closest family member that realignment causes.
+def _sps_idty():
+    from .comparator import (COVER_QUERY, IUPAC_EXACT, IUPAC_OPTIMISTIC,
+                             Comparator)
+
+    return (Comparator(IUPAC_EXACT, "none", COVER_QUERY, False),
+            Comparator(IUPAC_OPTIMISTIC, "none", COVER_QUERY, False))
+
+
+def _align(finder, queries, engine: str, device, realign: bool = False):
+    from .align import AlignerConfig, align_dispatch, align_finalize
+
+    results = finder.process_batch(queries)
+    aligned = align_finalize(align_dispatch(
+        queries, [r.family if not r.failed else [] for r in results],
+        AlignerConfig(engine=engine, realign=realign), device=device))
+    return results, aligned
+
+
+def realign_metrics(db: ReferenceDb, step: int = 62, engine: str = "graph",
+                    lqo: bool = True, device="cpu"):
+    """Per-query realign metrics of every `step`-th reference realigned
+    against `db` in one batch on `device` (the port of
+    tests/test_accuracy_multiseed.py _realign_metrics): numpy (sps,
+    cpm), a failed query counting sps 0 and cpm 1."""
+    from .famfinder import FamFinder, FamFinderConfig
+
+    sps_cmp, idty_cmp = _sps_idty()
+    finder = FamFinder(db, FamFinderConfig(
+        fs_full_len=1200, fs_req_gaps=1, fs_leave_query_out=lqo), device)
+    originals = db.sequences[::step]
+    results, aligned = _align(finder, [unaligned_copy(s) for s in originals],
+                              engine, device, realign=True)
+    spss, cpms = [], []
+    for q0, fr, a in zip(originals, results, aligned):
+        if a is None:
+            spss.append(0.0)
+            cpms.append(1.0)
+            continue
+        spss.append(sps_cmp(q0, a))
+        closest, best = None, -1.0
+        for _, r in fr.family:
+            v = idty_cmp(q0, r)
+            if v > best:
+                best, closest = v, r
+        cpms.append(best - idty_cmp(a, closest) if closest is not None else 0.0)
+    return np.array(spss), np.array(cpms)
+
+
+def align_vs_truth(db: ReferenceDb, queries, truths, engine: str = "graph",
+                   device="cpu") -> np.ndarray:
+    """sps of each of `queries` aligned against `db` on `device` with the
+    short-reference family options (fs_full_len 400) against its true
+    alignment in `truths`; 0 for a failed query."""
+    from .famfinder import FamFinder, FamFinderConfig
+
+    sps_cmp, _ = _sps_idty()
+    finder = FamFinder(db, FamFinderConfig(fs_full_len=400, fs_req_gaps=1), device)
+    _, aligned = _align(finder, queries, engine, device)
+    return np.array([sps_cmp(t, a) if a is not None else 0.0
+                     for t, a in zip(truths, aligned)])
+
+
+def partial_reads(db: ReferenceDb, seed: int, lo: int = 300, hi: int = 540):
+    """The 240-nt mid-gene reads of tests/test_accuracy_multiseed.py:
+    40 queries (seed + 2, branch 1.0) cut to alignment positions
+    [lo, hi) of their bases, unaligned, with their true alignments
+    sliced alike: (reads, truths)."""
+    reads, truths = [], []
+    for q in make_queries(db, n=40, seed=seed + 2, branch_len=1.0):
+        m = q.masks[lo:hi]
+        reads.append(Sequence(q.name, np.arange(len(m), dtype=np.uint32), m, len(m), {}))
+        truths.append(Sequence(q.name, q.positions[lo:hi], m, q.width, {}))
+    return reads, truths
+
+
 # Backpointer planes for the traceback tests: the profile DP's (C, B, M)
 # uint8 cells (bits 0-1 code, bit 2 deletion opened, bit 3 insertion
 # opened; ops/profile_kernel.py) and the graph DP's (B, N, M) int16 cells

@@ -7,8 +7,13 @@ the whole bundle with --show-dist semantics, and must clear the
 reference's own thresholds unchanged (accuracy_kmer.test): avg_sps
 (identity with the original alignment), avg_cpm (closest-reference
 identity drift) and avg_idty, for the graph engine and the profile
-engine.  The fs-msc-max degradation curve (test_realign_msc_capped)
-is not ported yet: on the plain versions it takes two minutes."""
+engine.  The other cases of tests/test_accuracy.py are in
+test_torch_accuracy_kmer.py (prealigned, the copy path, leave-query-out
+and the k-mer index variants, k = 8 and no-fast) and
+test_torch_accuracy_msc.py (the fs-msc-max degradation curve), which
+take this file's fixtures and run(); jax_run() is the JAX package's
+Pipeline on the same bundle, for the cases whose aggregates must equal
+the port's."""
 
 import pytest
 import torch
@@ -40,8 +45,29 @@ def _one_torch_thread():
 
 
 def run(bundle, step=104, **kw):
+    """tests/test_accuracy.py's run() on the port's Pipeline (cpu)."""
+    return _run(bundle, step, kw, (Pipeline, PipelineConfig, FamFinderConfig,
+                                   AlignerConfig), device="cpu")
+
+
+def jax_run(bundle, step=104, **kw):
+    """The same run on the JAX package's Pipeline."""
+    from sina_tpu.align import AlignerConfig as JaxAlignerConfig
+    from sina_tpu.famfinder import FamFinderConfig as JaxFamFinderConfig
+    from sina_tpu.pipeline import Pipeline as JaxPipeline
+    from sina_tpu.pipeline import PipelineConfig as JaxPipelineConfig
+
+    return _run(bundle, step, kw, (JaxPipeline, JaxPipelineConfig, JaxFamFinderConfig,
+                                   JaxAlignerConfig))
+
+
+def _run(bundle, step, kw, classes, **more):
+    pipeline, pipeline_config, famfinder_config, aligner_config = classes
+    kw = dict(kw)
     fam_kw = dict(
         fs_full_len=1200, fs_req_gaps=1,
+        fs_kmer_len=kw.pop("fs_kmer_len", 10),
+        fs_no_fast=kw.pop("fs_no_fast", False),
         fs_leave_query_out=kw.pop("fs_leave_query_out", False),
         fs_msc_max=kw.pop("fs_msc_max", 2.0),
     )
@@ -49,19 +75,20 @@ def run(bundle, step=104, **kw):
         realign=kw.pop("realign", False),
         engine=kw.pop("engine", "auto"),
     )
-    cfg = PipelineConfig(
+    cfg = pipeline_config(
         in_path=bundle,
         db=bundle,
         outputs=[],
+        prealigned=kw.pop("prealigned", False),
         show_dist=True,
         select_step=step,
-        famfinder=FamFinderConfig(**fam_kw),
-        aligner=AlignerConfig(**ali_kw),
+        famfinder=famfinder_config(**fam_kw),
+        aligner=aligner_config(**ali_kw),
         batch_size=48,
-        device="cpu",
+        **more,
         **kw,
     )
-    return Pipeline(cfg).run()
+    return pipeline(cfg).run()
 
 
 def test_realign(bundle):

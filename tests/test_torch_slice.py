@@ -68,6 +68,15 @@ CASES = {
         n=24, full_len=1300, amplicon=250,
         extra=["--col-trim-min-cols", "0", "--fs-min-len", "100"],
     ),
+    # the same with --insertion forbid: full profile builds, window-
+    # sliced rows whose last slot is budgeted to the next occupied
+    # column outside the window (tests/test_col_trim.py:66)
+    "amplicon_col_trim_forbid": dict(
+        ref=dict(n_seqs=300, n_core=1450, width=2400, seed=42),
+        n=24, full_len=1300, amplicon=250,
+        extra=["--col-trim-min-cols", "0", "--fs-min-len", "100",
+               "--insertion", "forbid"],
+    ),
 }
 
 
