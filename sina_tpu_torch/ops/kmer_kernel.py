@@ -28,9 +28,23 @@ import torch
 
 from . import kernels
 
-# k-mers gathered at a time by the plain versions (bounds the (B, c, S)
-# gather's memory)
+# k-mers gathered at a time by the plain versions, at most
 _CHUNK = 32
+# bytes of the gathered rows (the bitpacked ones unpacked, a byte a bit)
+# the plain versions hold at a time, so that they fit beside the index: a
+# batch of 1,024 queries against the 56,320-byte rows of a 450k-reference
+# index takes one k-mer of 595 queries at a time
+_PLAIN_BYTES = 256 << 20
+
+
+def _blocks(B: int, L: int, row_bytes: int) -> tuple[int, int]:
+    """(queries, k-mers) the plain versions gather at a time: up to
+    _CHUNK k-mers, fewer (down to 1, then fewer queries too) as the
+    (queries, k-mers, row_bytes) block would pass _PLAIN_BYTES."""
+    row_bytes = max(row_bytes, 1)
+    b = max(1, min(B, _PLAIN_BYTES // row_bytes))
+    c = max(1, min(_CHUNK, L, _PLAIN_BYTES // (b * row_bytes)))
+    return b, c
 
 
 def _flat(P: torch.Tensor) -> torch.Tensor:
@@ -40,7 +54,7 @@ def _flat(P: torch.Tensor) -> torch.Tensor:
 
 
 def kmer_scores_plain(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: chunked row gather + bit-unpack sum.
+    """Plain PyTorch version: blocked row gather + bit-unpack sum.
     P (R+1, Sb) uint8 (or tiled), kmers (B, L) int32 -> (B, 8*Sb)
     int32.  Ids outside [0, R] (famfinder makes none) clamp into the
     matrix, as the kernel clamps them."""
@@ -50,10 +64,12 @@ def kmer_scores_plain(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
     ids = kmers.long().clamp(0, P.shape[0] - 1)
     shifts = torch.arange(8, device=P.device, dtype=torch.uint8)
     acc = torch.zeros((B, Sb, 8), dtype=torch.int32, device=P.device)
-    for l0 in range(0, L, _CHUNK):
-        rows = P[ids[:, l0:l0 + _CHUNK]]                  # (B, c, Sb)
-        bits = (rows.unsqueeze(-1) >> shifts) & 1        # (B, c, Sb, 8)
-        acc += bits.sum(dim=1, dtype=torch.int32)
+    nb, c = _blocks(B, L, 8 * Sb)
+    for b0 in range(0, B, nb):
+        for l0 in range(0, L, c):
+            bits = P[ids[b0:b0 + nb, l0:l0 + c]].unsqueeze(-1) >> shifts  # (nb, c, Sb, 8)
+            bits &= 1
+            acc[b0:b0 + nb] += bits.sum(dim=1, dtype=torch.int32)
     return acc.reshape(B, Sb * 8)
 
 
@@ -67,15 +83,17 @@ def group_max_plain(scores: torch.Tensor) -> torch.Tensor:
 
 
 def kmer_scores_dense_plain(P: torch.Tensor, kmers: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the dense scorer: chunked row gather,
+    """Plain PyTorch version of the dense scorer: blocked row gather,
     summed in int32.  P (R+1, S) int8, kmers (B, L) int32 -> (B, S)
     int32.  Ids outside [0, R] (famfinder makes none) clamp into the
     matrix, as the kernel clamps them."""
     B, L = kmers.shape
     ids = kmers.long().clamp(0, P.shape[0] - 1)
     acc = torch.zeros((B, P.shape[1]), dtype=torch.int32, device=P.device)
-    for l0 in range(0, L, _CHUNK):
-        acc += P[ids[:, l0:l0 + _CHUNK]].sum(dim=1, dtype=torch.int32)
+    nb, c = _blocks(B, L, P.shape[1])
+    for b0 in range(0, B, nb):
+        for l0 in range(0, L, c):
+            acc[b0:b0 + nb] += P[ids[b0:b0 + nb, l0:l0 + c]].sum(dim=1, dtype=torch.int32)
     return acc
 
 

@@ -255,6 +255,69 @@ def test_grouped_topk_on_cuda_equals_cpu(cuda):
         _equal([got], [kk.score_topk(P, kmers, k)])
 
 
+# a 450k-reference index's row: 450,560 padded references, 56,320 bytes
+SILVA_NR_SB = 56_320
+
+
+@pytest.mark.parametrize("B", [1, 128, 1024])
+@pytest.mark.parametrize("offset,load_bytes,tiles", [(0, 16, 28), (4, 4, 110)])
+def test_kmer_kernel_at_the_silva_nr_width(cuda, B, offset, load_bytes, tiles):
+    """The scorer with its group maxima at a 450k-reference index's row
+    width (Sb = 56,320: 28 column tiles of 16-byte copies, or 110 of
+    4-byte copies on a base 4 bytes off 16) at B = 1, famfinder's batch
+    and the amplicon path's, on a matrix of 2,000 rows: each query 360
+    ids and then the sink row, as famfinder pads them.  Exact against
+    the plain versions, run on the card."""
+    R, L = 2000, 512
+    g = torch.Generator(device=cuda).manual_seed(B + offset)
+    raw = torch.empty(R * SILVA_NR_SB + offset, dtype=torch.uint8, device=cuda)
+    P = raw[offset:].view(R, SILVA_NR_SB)
+    P.copy_(torch.randint(0, 256, (R, SILVA_NR_SB), dtype=torch.uint8, device=cuda,
+                          generator=g))
+    P[-1] = 0
+    plan = kk.kmer_score_plan(P)
+    assert (plan["load_bytes"], plan["tiles"]) == (load_bytes, tiles)
+    kmers = _kmer_ids("random", B, L, R, seed=B + offset)
+    kmers[:, 360:] = R - 1
+    kc = kmers.to(cuda)
+    want = kk.kmer_scores_plain(P, kc)
+    before = kernels.launches["kmer_score"]
+    _equal(kk.kmer_scores(P, kc, gmax=True), [want, kk.group_max_plain(want)])
+    assert kernels.launches["kmer_score"] == before + 1
+
+
+def _tied_silva_nr(rng, B: int = 4):
+    """A packed matrix of 49 rows whose scores are set by construction
+    over 450,560 references (score(s) = c_s: the query hits rows 0..47,
+    reference s has bits in rows 0..c_s-1): eight distinct top scores,
+    the rest 0-12 with heavy ties; queries as in
+    test_grouped_topk_on_cuda_equals_cpu."""
+    S, L = 8 * SILVA_NR_SB, 48
+    c = rng.integers(0, 13, S)
+    c[rng.choice(S, 8, replace=False)] = np.arange(40, 32, -1)
+    bits = np.arange(L + 1)[:, None] < c[None, :]
+    bits[-1] = False
+    P = torch.from_numpy(np.packbits(bits, axis=1, bitorder="little"))
+    kmers = np.tile(np.arange(L, dtype=np.int32), (B, 1))
+    kmers[1, ::2] = L
+    kmers[2] = rng.integers(0, L + 1, L)
+    return P, torch.from_numpy(kmers)
+
+
+@pytest.mark.parametrize("k", [256, 1000])
+def test_score_topk_on_cuda_equals_cpu_at_silva_nr_width(cuda, k):
+    """score_topk over 450,560 padded references (the grouped top-k,
+    famfinder's k and the search's) with the k-th value tied among
+    tens of thousands: the same values and ids on the card as on the
+    CPU, from one scorer launch."""
+    P, kmers = _tied_silva_nr(np.random.default_rng(k))
+    assert 8 * P.shape[1] == 450_560
+    before = kernels.launches["kmer_score"]
+    got = kk.score_topk(P.to(cuda), kmers.to(cuda), k)
+    assert kernels.launches["kmer_score"] == before + 1
+    _equal([got], [kk.score_topk(P, kmers, k)])
+
+
 def _profiles(seed, B, C, M):
     rng = np.random.default_rng(seed)
     cons = rng.integers(0, 4, (B, C))
