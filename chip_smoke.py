@@ -13,7 +13,9 @@ Phases, each printing a line:
      main path's shapes (exact), with both times and the card's bound;
      the packed k-mer scorer also with its group maxima (exact), and
      score_topk at k = 256 and 1,000 split into the kernel and the torch
-     top-k stages, beside the same call with stage 1 by amax, in turns;
+     top-k stages, beside the same call with stage 1 by amax, in turns,
+     with the stages' bound by bytes, the kernel's, and the plain
+     version's time (its output equal);
      the profile DP's bounded-insertion (forbid) mode on the same
      shapes with a budget plane of 0, 1, small values, values above M
      and 10**6, eight rows of it real families and queries of phase
@@ -162,16 +164,32 @@ Phases, each printing a line:
      equal the card's as floats; then the seven cases of
      tests/test_accuracy_multiseed.py (fresh fixture seeds, the profile
      engine's worst case, divergent queries, partial-length reads) on
-     the port's famfinder and aligner (cuda) with that file's bars.
+     the port's famfinder and aligner (cuda) with that file's bars;
+ 22. bench.py's operating points through bench_torch.py: its default,
+     --graph, --amplicon and --search modes through bench_torch.run on
+     phase 5's reference, index and famfinder (640 queries in batches
+     of 128; 5,120 amplicons in batches of 1,024), each with its JSON
+     line, bench_torch's stderr lines (set-up, warm-up breakdown,
+     timers, wall coverage, the timed window's launches and
+     generation-2 collections), the queries aligned (>= 95%, records
+     valid) or classified (>= 95% of the timed ones), the launches of
+     its path's kernels and its peak device memory; the --search mode's
+     first 16 queries again on the cpu (nearest_slv, lca_tax_slv and
+     the records identical); then `python bench_torch.py --curve`
+     (2k, 20k and 100k references), `--graph`, `--search` and
+     `--amplicon` as child processes at bench.py's default 2,000 x
+     2,400, each exiting 0 with its JSON lines alone on its stdout;
+     and the port's figure for each row of README.md's performance
+     table.
 
 Phases 5, 7, 12, 18 and 20 also print their steady batches' copies (counts,
 the host ms a batch of the upload and fetch sections) and, from the
 profiled second pass, each kind of copy's device ms; the device's busy
 ms there are the union of its activity intervals over the compute and
-copy streams.  Phases 5, 7, 10, 12, 14, 15, 18, 19 and 20 print their
-peak device memory, the host's available RAM and the process's peak
-resident memory, and phases 5, 7, 10, 12 and 20 the garbage collector's
-runs in their timed batches; each phase group ends with the seconds
+copy streams.  Phases 5, 7, 10, 12, 14, 15, 18, 19, 20 and 22 print
+their peak device memory, the host's available RAM and the process's
+peak resident memory, and phases 5, 7, 10, 12, 20 and 22 the garbage
+collector's runs in their timed batches; each phase group ends with the seconds
 since the start.
 
 The second-to-last line is the kernels' JSON record, the line before
@@ -193,6 +211,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from bench_torch import amplicon_cut, gc_pauses
 
 # main-path shapes: batch 128 of ~1,450-nt queries (M bucket 1536)
 # against family profiles of up to 2048 occupied columns; phase 3's
@@ -230,7 +250,7 @@ TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
 # queries cut to 250 bases, in batches of 1,024 (the first warms up),
 # then 2,048 of them with --insertion forbid; the first 64 (16 for
 # forbid) again on the cpu
-N_AMPLICON, B_AMPLICON, AMPLICON_LEN = 5120, 1024, 250
+N_AMPLICON, B_AMPLICON = 5120, 1024
 N_AMPLICON_FORBID, AMPLICON_TWINS, AMPLICON_FORBID_TWINS = 2048, 64, 16
 # the accuracy suite (phase 21): tests/test_accuracy.py's bundle
 N_LTP = 5000
@@ -416,6 +436,20 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_one(fn) -> tuple:
+    """(fn()'s result, its device ms): one call between CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_launch_ms(fn, reps: int, flush=None) -> float:
@@ -799,13 +833,32 @@ def kmer_rows(kmers) -> str:
             f"summed, {kmers.numel()} ids")
 
 
+def topk_stages_bound(B: int, S: int, k: int) -> dict:
+    """The bound of score_topk's torch top-k stages as one function of
+    the kernel's outputs (grouped_top_k's, from GROUPED_MIN_WIDTH padded
+    references): the (B, S/8) int32 group maxima read, the eight scores
+    of each of the C = min(max(k, 256), S/8) chosen groups read, the
+    (B, 2k) int32 [values | ids] written; below that width (a plain
+    top-k) the (B, S) scores read."""
+    from sina_tpu_torch.ops import kmer_kernel as kk
+
+    out = 4 * B * 2 * k
+    if S < kk.GROUPED_MIN_WIDTH:
+        return bound(4 * B * S + out)
+    C = min(max(k, 256), S // 8)
+    return bound(4 * B * (S // 8) + 4 * B * 8 * C + out)
+
+
 def score_topk_times(P, kmers, phase: str = "phase 3") -> None:
     """score_topk's device time a call on P at k = 256 and 1,000
     (torch.profiler over 10 calls), split into the kernel (its
     pre-pass included) and the torch top-k stages: stage 1 from the
     group maxima the kernel writes (the port's path), and in turns the
     same call whose stage 1 takes amax over the scores (gmax, amax, amax,
-    gmax; means over each route's two turns)."""
+    gmax; means over each route's two turns); beside the stages' bound
+    (topk_stages_bound) and the kernel's (kmer_bound), and the plain
+    version's time (the plain scorer, then the same stages by amax;
+    one call, its output equal)."""
     import torch
 
     from sina_tpu_torch.ops import kmer_kernel as kk
@@ -813,19 +866,37 @@ def score_topk_times(P, kmers, phase: str = "phase 3") -> None:
     def with_amax(k):
         return torch.cat(kk.grouped_top_k(kk.kmer_scores(P, kmers), k), dim=1)
 
+    def plain(k):
+        scores = kk.kmer_scores_plain(P, kmers)
+        if scores.shape[1] >= kk.GROUPED_MIN_WIDTH:
+            return torch.cat(kk.grouped_top_k(scores, k), dim=1)
+        return torch.cat(kk.top_k_lowest_id(scores, k), dim=1)
+
+    B, S = kmers.shape[0], 8 * P.shape[1]
+    kernel_b = kmer_bound(kmers, P.shape[1], P.shape[0] - 1)
     for k in (256, 1000):
-        if not torch.equal(kk.score_topk(P, kmers, k), with_amax(k)):
+        got = kk.score_topk(P, kmers, k)
+        if not torch.equal(got, with_amax(k)):
             raise AssertionError(f"score_topk (k={k}) differs with the kernel's group maxima")
+        want, plain_ms = time_one(lambda: plain(k))
+        if not torch.equal(got, want):
+            raise AssertionError(f"score_topk (k={k}) differs from its plain version")
+        del got, want
         routes = {"gmax": lambda: kk.score_topk(P, kmers, k), "amax": lambda: with_amax(k)}
         times = {name: [] for name in routes}
         for name in ("gmax", "amax", "amax", "gmax"):
             times[name].append(device_split(routes[name], 10))
         mean = {name: np.mean(t, axis=0) for name, t in times.items()}
-        say(f"{phase} score_topk k={k} B={kmers.shape[0]} Sb={P.shape[1]} (device ms a "
+        stages_b = topk_stages_bound(B, S, k)
+        say(f"{phase} score_topk k={k} B={B} Sb={P.shape[1]} (device ms a "
             f"call): group maxima from the kernel: "
             f"kernel {mean['gmax'][0]:.3f} + torch top-k stages {mean['gmax'][1]:.3f} = "
             f"{mean['gmax'].sum():.3f}; stage 1 by amax: kernel {mean['amax'][0]:.3f} + "
-            f"stages {mean['amax'][1]:.3f} = {mean['amax'].sum():.3f} (ids equal)")
+            f"stages {mean['amax'][1]:.3f} = {mean['amax'].sum():.3f} (ids equal); bound: "
+            f"stages {stages_b['bound_ms']:.4f} ({stages_b['bound_by']}) + kernel "
+            f"{kernel_b['bound_ms']:.3f} ({kernel_b['bound_by']}) = "
+            f"{stages_b['bound_ms'] + kernel_b['bound_ms']:.3f}; plain {plain_ms:.3f} "
+            f"(CUDA events, one call; output equal)")
 
 
 def device_split(fn, reps: int) -> tuple[float, float]:
@@ -1528,29 +1599,6 @@ def device_busy(fn) -> tuple[float, float, list]:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     return busy / 1e3, wall, per
-
-
-@contextlib.contextmanager
-def gc_pauses():
-    """While open, counts the garbage collector's runs and their host
-    time by generation (gc.callbacks); yields {generation: [runs, s]}."""
-    import gc
-
-    got = {g: [0, 0.0] for g in range(3)}
-    start = [0.0]
-
-    def note(phase, info):
-        if phase == "start":
-            start[0] = time.perf_counter()
-        else:
-            got[info["generation"]][0] += 1
-            got[info["generation"]][1] += time.perf_counter() - start[0]
-
-    gc.callbacks.append(note)
-    try:
-        yield got
-    finally:
-        gc.callbacks.remove(note)
 
 
 def gc_line(phase: str, got: dict) -> None:
@@ -2519,19 +2567,12 @@ def phase_transfers(dev, tmp: Path, finder, db, dfinder, ddb) -> None:
 
 def amplicon_queries(db, n: int) -> list:
     """bench.py --amplicon's queries (bench.py:136-143): make_queries
-    (seed 7, branch 0.7) made unaligned, each cut to the 250 bases from
-    min(400, (len - 250) // 2)."""
+    (seed 7, branch 0.7) made unaligned, each cut by bench_torch's
+    amplicon_cut to the 250 bases from min(400, (len - 250) // 2)."""
     from sina_tpu_torch import testing
 
-    out = []
-    for q in testing.make_queries(db, n=n, seed=7, branch_len=0.7):
-        u = testing.unaligned_copy(q)
-        lo = min(400, max(0, len(u.masks) - AMPLICON_LEN) // 2)
-        u.masks = u.masks[lo:lo + AMPLICON_LEN]
-        u.positions = np.arange(len(u.masks), dtype=np.uint32)
-        u.width = len(u.masks)
-        out.append(u)
-    return out
+    return [amplicon_cut(testing.unaligned_copy(q))
+            for q in testing.make_queries(db, n=n, seed=7, branch_len=0.7)]
 
 
 @contextlib.contextmanager
@@ -3001,6 +3042,220 @@ def phase_accuracy(dev, tmp: Path) -> None:
         f"the card in {time.perf_counter() - t_phase:.1f}s")
 
 
+# phase 22: bench.py's operating points through bench_torch.py.  In the
+# process, on phase 5's reference, index and famfinder: each mode's
+# arguments and the kernels its timed window must launch
+BENCH_MODES = {
+    "default": ([], PROFILE_PATH),
+    "graph": (["--graph"], GRAPH_PATH),
+    "amplicon": (["--amplicon"], PROFILE_PATH),
+    "search": (["--search"], ("kmer_score",)),
+}
+# the --search mode's first 16 queries again on the cpu, in batches of 8
+BENCH_SEARCH_TWINS = 16
+# the commands a user types, each a child process at bench.py's default
+# 2,000 references x width 2,400 (--curve: 2k, 20k and 100k), with the
+# JSON lines each must print
+BENCH_CHILDREN = ((["--curve"], 3), (["--graph"], 1), (["--search"], 1), (["--amplicon"], 1))
+BENCH_CHILD_TIMEOUT = 600
+# the least share of its queries that each run must align (the warm-up
+# batch included) or, with --search, classify (of its timed queries:
+# nearest_slv set).  The search's share rests on the cpu runs: 24 of 24
+# classified at 60 references (tests/test_torch_bench.py) and 128 of 128
+# at 2,000 (bench_torch.py --cpu --search --n-queries 256)
+BENCH_MIN_SHARE = 0.95
+_BENCH_SUMMARY = re.compile(
+    r"timed (\d+)(?: seqs)? in [\d.]+s \((?:aligned (\d+)/(\d+)|classified (\d+))\)")
+# README.md's performance rows (README.md:63-75), each with the runs of
+# phase 22 that give the port's figure: (mode, n_refs)
+README_ROWS = (
+    ("full-length rRNA (~1450nt), 2k refs", (("default", 2000),)),
+    ("full-length, SILVA scale (100k refs, width 50k)", (("default", 100000),)),
+    ("full-length, FULL SILVA NR scale (450k refs), one chip", (("default", 450000),)),
+    ("V4 amplicons (~250nt)", (("amplicon", 2000), ("amplicon", 450000))),
+    ("search + LCA classification", (("search", 2000), ("search", 450000))),
+    ("graph (mseq-faithful) engine", (("graph", 2000), ("graph", 450000))),
+)
+
+
+def bench_shares(text: str) -> list[tuple[int, int]]:
+    """(done, of) from each summary line bench_torch printed: aligned
+    N/M, or classified N of the timed queries; fails unless each share
+    reaches BENCH_MIN_SHARE."""
+    got = []
+    for m in _BENCH_SUMMARY.finditer(text):
+        timed, aligned, total, classified = m.groups()
+        got.append((int(aligned), int(total)) if aligned else (int(classified), int(timed)))
+    for done, of in got:
+        if done < BENCH_MIN_SHARE * of:
+            raise AssertionError(f"phase 22: only {done} of {of} queries aligned or classified")
+    return got
+
+
+def bench_echo(prefix: str, text: str) -> None:
+    """Print bench_torch's stderr lines (each begins with "# ")."""
+    for line in text.splitlines():
+        if line.startswith("# "):
+            say(f"{prefix} {line[2:]}")
+
+
+@contextlib.contextmanager
+def kept_queries():
+    """While open, keeps (in the list it yields) the queries of each
+    bench_torch.workload call."""
+    import bench_torch
+
+    kept = []
+    workload = bench_torch.workload
+
+    def keeping(args, db=None):
+        db, queries = workload(args, db)
+        kept.append(queries)
+        return db, queries
+
+    bench_torch.workload = keeping
+    try:
+        yield kept
+    finally:
+        bench_torch.workload = workload
+
+
+def bench_in_process(dev, tmp: Path, finder, db) -> dict:
+    """Each of BENCH_MODES through bench_torch.run on phase 5's
+    reference and famfinder; the --search mode's first queries again on
+    the cpu.  Returns {mode: the JSON line's dict}."""
+    import io
+
+    import torch
+
+    import bench_torch
+    from sina_tpu_torch.ops import kernels
+
+    lines = {}
+    for mode, (extra, path) in BENCH_MODES.items():
+        args = bench_torch.parse_args(["--n-refs", str(len(db)), "--width", str(db.width),
+                                       *extra])
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with kept_queries() as kept, contextlib.redirect_stderr(err):
+            out, records = bench_torch.run(args, db=db, finder=finder, device=dev)
+        took = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        text = err.getvalue()
+        bench_echo(f"phase 22 {mode} |", text)
+        (done, of), = bench_shares(text)
+        missing = [k for k in path if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 22 {mode}: kernels never launched: {missing}")
+        if len(records) != args.n_queries:
+            raise AssertionError(f"phase 22 {mode}: {len(records)} records of "
+                                 f"{args.n_queries}")
+        if mode == "search":
+            classified = sum(1 for r in records[args.batch_size:]
+                             if r is not None and r.get_attr("nearest_slv"))
+            if classified != done:
+                raise AssertionError(f"phase 22 search: {classified} records carry "
+                                     f"nearest_slv, the summary says {done}")
+            search_twins(tmp, finder, db, records[:BENCH_SEARCH_TWINS])
+        else:
+            fa = tmp / f"bench_{mode}.fasta"
+            fasta_text([r for r in records if r is not None], fa)
+            if check_records(fa, kept[0], db.width) != done:
+                raise AssertionError(f"phase 22 {mode}: the records and the summary's "
+                                     f"count differ")
+        say(f"phase 22 {mode}: {json.dumps(out)}")
+        say(f"phase 22 {mode}: {'classified' if mode == 'search' else 'aligned'} {done} of "
+            f"{of}; {args.n_queries} queries in batches of {args.batch_size} at "
+            f"{len(db)} references x width {db.width}; the call took {took:.1f}s; timed "
+            f"window launches {launches} on {gpu_line()}")
+        peak_memory(f"phase 22 {mode}")
+        lines[mode] = out
+    return lines
+
+
+def search_twins(tmp: Path, finder, db, gpu_records) -> None:
+    """bench_torch.run --search on the cpu for the first
+    BENCH_SEARCH_TWINS queries (batches of half that): nearest_slv,
+    lca_tax_slv and the records equal the card's."""
+    import io
+
+    import torch
+
+    import bench_torch
+
+    args = bench_torch.parse_args(["--n-refs", str(len(db)), "--width", str(db.width),
+                                   "--search", "--n-queries", str(BENCH_SEARCH_TWINS),
+                                   "--batch-size", str(BENCH_SEARCH_TWINS // 2)])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        _, cpu_records = bench_torch.run(args, db=db, finder=finder, device=torch.device("cpu"))
+    for field in ("nearest_slv", "lca_tax_slv"):
+        got = [r.get_attr(field) for r in cpu_records]
+        if got != [r.get_attr(field) for r in gpu_records]:
+            raise AssertionError(f"phase 22 search: {field} differs between the card and "
+                                 f"the cpu")
+    if (fasta_text(gpu_records, tmp / "bench_gpu16.fasta")
+            != fasta_text(cpu_records, tmp / "bench_cpu16.fasta")):
+        raise AssertionError("phase 22 search: records differ between the card and the cpu")
+    say(f"phase 22 search parity: {len(cpu_records)} records, their nearest_slv and "
+        f"lca_tax_slv identical on cpu and gpu ({time.perf_counter() - t0:.1f}s on the cpu)")
+
+
+def bench_children() -> list[dict]:
+    """Each of BENCH_CHILDREN as the command a user types: `python
+    bench_torch.py ARGS` in a child process, which must exit 0 and
+    print its JSON lines (and nothing else) on stdout; returns them,
+    each with its mode and reference count."""
+    import gc
+
+    import bench_torch
+
+    gc.collect()
+    say(f"phase 22 before the child processes: {host_memory()}")
+    root = Path(__file__).resolve().parent
+    lines = []
+    for extra, n_lines in BENCH_CHILDREN:
+        name = " ".join(extra)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(root / "bench_torch.py"), *extra], cwd=root,
+                             capture_output=True, text=True, timeout=BENCH_CHILD_TIMEOUT)
+        took = time.perf_counter() - t0
+        bench_echo(f"phase 22 child {name} |", res.stderr)
+        if res.returncode != 0:
+            raise AssertionError(f"phase 22: bench_torch.py {name} exited {res.returncode}:\n"
+                                 f"{res.stderr[-3000:]}")
+        got = [json.loads(line) for line in res.stdout.strip().splitlines()]
+        if len(got) != n_lines or len(bench_shares(res.stderr)) != n_lines:
+            raise AssertionError(f"phase 22: bench_torch.py {name} printed {len(got)} JSON "
+                                 f"lines, not {n_lines}:\n{res.stdout[-2000:]}")
+        for line in got:
+            say(f"phase 22 child {name}: {json.dumps(line)}")
+        say(f"phase 22 child {name}: exit 0, {n_lines} JSON line(s), the last line of its "
+            f"stdout one, in {took:.1f}s")
+        mode = "default" if extra == ["--curve"] else extra[0][2:]
+        n_refs = bench_torch.parse_args(extra).n_refs
+        lines += [dict(line, mode=mode, n_refs=line.get("n_refs", n_refs)) for line in got]
+    return lines
+
+
+def phase_bench(dev, tmp: Path, finder, db) -> None:
+    """bench.py's operating points through bench_torch.py: its four
+    modes in this process at phase 5's scale, then the commands a user
+    types as child processes; prints the port's figure for each of
+    README.md's performance rows."""
+    t0 = time.perf_counter()
+    inproc = bench_in_process(dev, tmp, finder, db)
+    got = {(mode, len(db)): line for mode, line in inproc.items()}
+    for line in bench_children():
+        got[line["mode"], line["n_refs"]] = line
+    for row, runs in README_ROWS:
+        say(f"phase 22 README row '{row}': " + "; ".join(
+            f"{got[m, n]['value']} seq/s at {n} references ({m})" for m, n in runs))
+    say(f"phase 22 on {gpu_line()}: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import torch
 
@@ -3068,6 +3323,8 @@ def main() -> int:
         lap("20")
         phase_accuracy(dev, tmp)
         lap("21")
+        phase_bench(dev, tmp, finder, db)
+        lap("22")
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     launches.update({k: dlaunches[k] for k in ("graph_dp_dense", "graph_traceback_dense")})

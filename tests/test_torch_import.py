@@ -2,6 +2,7 @@
 options ported since its first slice, and every kernel launch goes
 through the one helper that makes the operands' device current."""
 
+import json
 import re
 import subprocess
 import sys
@@ -112,7 +113,7 @@ def test_cli_help_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    for path in (REPO / "sina_tpu_torch").rglob("*.py"):
+    for path in [*(REPO / "sina_tpu_torch").rglob("*.py"), REPO / "bench_torch.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not (s.startswith("import jax") or s.startswith("from jax")), (
@@ -121,13 +122,34 @@ def test_port_sources_never_import_jax():
 
 
 def test_port_sources_never_import_the_jax_package():
-    paths = [*(REPO / "sina_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    paths = [*(REPO / "sina_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+             REPO / "bench_torch.py"]
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             bad = len(words) >= 2 and words[0] in ("import", "from") and (
                 words[1] == "sina_tpu" or words[1].startswith("sina_tpu."))
             assert not bad, f"{path}: {line}"
+
+
+def test_bench_torch_runs_without_jax(tmp_path):
+    """A tiny bench_torch.py --cpu run (search + LCA, then alignment)
+    with jax and sina_tpu blocked prints its JSON line."""
+    code = (
+        "import json\n"
+        "import bench_torch\n"
+        "tiny = ['--cpu', '--n-refs', '40', '--width', '600', '--n-core', '400',\n"
+        "        '--fs-max', '10', '--n-queries', '8', '--batch-size', '4']\n"
+        "for extra in (['--search'], []):\n"
+        "    assert bench_torch.main(tiny + extra) == 0\n"
+        + NOTHING_BLOCKED_LOADED +
+        "print('ok')\n"
+    )
+    res = _run(code, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    assert [json.loads(ln)["unit"] for ln in lines[:-1]] == ["seq/s", "seq/s"]
 
 
 def test_cli_turn_and_search_without_jax(tmp_path):
