@@ -14,8 +14,9 @@ Phases, each printing a line:
      the packed k-mer scorer also with its group maxima (exact), and
      score_topk at k = 256 and 1,000 split into the kernel and the torch
      top-k stages, beside the same call with stage 1 by amax, in turns,
-     with the stages' bound by bytes, the kernel's, and the plain
-     version's time (its output equal);
+     with the stages' bound by bytes, the kernel's, the plain
+     version's time (its output equal) and one torch.topk over the
+     kernel's (B, S) scores (the library call; its values equal);
      the profile DP's bounded-insertion (forbid) mode on the same
      shapes with a budget plane of 0, 1, small values, values above M
      and 10**6, eight rows of it real families and queries of phase
@@ -180,7 +181,20 @@ Phases, each printing a line:
      `--amplicon` as child processes at bench.py's default 2,000 x
      2,400, each exiting 0 with its JSON lines alone on its stdout;
      and the port's figure for each row of README.md's performance
-     table.
+     table;
+ 23. the port of __graft_entry__.entry() (sina_tpu_torch.graft_entry:
+     the bitpacked scorer, the lowest-id top-k and the dense graph DP on
+     tiny shapes) on the card, equal to its plain run on the cpu (vals,
+     ids, best_j, best_i and raw exact), each of its kernels launched
+     once; then, as child processes each exiting 0, `python -m
+     sina_tpu_torch.graft_entry` (its dry run over the visible cards)
+     and the port's tools: prof_famfinder at 450,000 references with
+     --batch 128 and 1024, --topk 256 and 1000 (one torch.topk over the
+     (B, S) scores among its lines), prof_profiledp at its defaults and
+     at the amplicon shape (--c 512 --m 256 --batch 1024), prof_wire_ab
+     at its defaults, and diag_accuracy on both engines, whose summary
+     line must equal the same command's with --device cpu; with the
+     device memory free before the children.
 
 Phases 5, 7, 12, 18 and 20 also print their steady batches' copies (counts,
 the host ms a batch of the upload and fetch sections) and, from the
@@ -858,7 +872,8 @@ def score_topk_times(P, kmers, phase: str = "phase 3") -> None:
     gmax; means over each route's two turns); beside the stages' bound
     (topk_stages_bound) and the kernel's (kmer_bound), and the plain
     version's time (the plain scorer, then the same stages by amax;
-    one call, its output equal)."""
+    one call, its output equal), and the library call's: one torch.topk
+    over the kernel's (B, S) scores (its values equal)."""
     import torch
 
     from sina_tpu_torch.ops import kmer_kernel as kk
@@ -874,6 +889,7 @@ def score_topk_times(P, kmers, phase: str = "phase 3") -> None:
 
     B, S = kmers.shape[0], 8 * P.shape[1]
     kernel_b = kmer_bound(kmers, P.shape[1], P.shape[0] - 1)
+    scores = kk.kmer_scores(P, kmers)
     for k in (256, 1000):
         got = kk.score_topk(P, kmers, k)
         if not torch.equal(got, with_amax(k)):
@@ -881,7 +897,12 @@ def score_topk_times(P, kmers, phase: str = "phase 3") -> None:
         want, plain_ms = time_one(lambda: plain(k))
         if not torch.equal(got, want):
             raise AssertionError(f"score_topk (k={k}) differs from its plain version")
-        del got, want
+        lib_vals, lib_ids = torch.topk(scores, k, dim=1)
+        if not torch.equal(lib_vals, got[:, :k]):
+            raise AssertionError(f"torch.topk (k={k}) values differ from score_topk's")
+        same_ids = int((lib_ids == got[:, k:]).sum())
+        lib_ms = time_ms(lambda: torch.topk(scores, k, dim=1), 10)
+        del got, want, lib_vals, lib_ids
         routes = {"gmax": lambda: kk.score_topk(P, kmers, k), "amax": lambda: with_amax(k)}
         times = {name: [] for name in routes}
         for name in ("gmax", "amax", "amax", "gmax"):
@@ -896,7 +917,9 @@ def score_topk_times(P, kmers, phase: str = "phase 3") -> None:
             f"stages {stages_b['bound_ms']:.4f} ({stages_b['bound_by']}) + kernel "
             f"{kernel_b['bound_ms']:.3f} ({kernel_b['bound_by']}) = "
             f"{stages_b['bound_ms'] + kernel_b['bound_ms']:.3f}; plain {plain_ms:.3f} "
-            f"(CUDA events, one call; output equal)")
+            f"(CUDA events, one call; output equal); library: one torch.topk over the "
+            f"{tuple(scores.shape)} scores {lib_ms:.3f} (CUDA events, mean of 10; values "
+            f"equal, ids equal at {same_ids} of {B * k} places)")
 
 
 def device_split(fn, reps: int) -> tuple[float, float]:
@@ -3256,6 +3279,112 @@ def phase_bench(dev, tmp: Path, finder, db) -> None:
     say(f"phase 22 on {gpu_line()}: {time.perf_counter() - t0:.1f}s")
 
 
+# phase 23: the port of __graft_entry__.entry() in this process, then the
+# port's graft entry and tools as the commands a user types, each a
+# child process: (module, arguments).  prof_famfinder at phase 5's and
+# phase 20's batches over a random 450k-reference index (14.76 GB flat,
+# 15.03 GB tiled, beside this process's 14.76 GB index); prof_profiledp
+# at its defaults and at the amplicon shape; diag_accuracy on both
+# engines, whose summary line must equal the same command's with
+# --device cpu
+TOOL_CHILDREN = (
+    ("sina_tpu_torch.graft_entry", []),
+    *(("sina_tpu_torch.tools.prof_famfinder",
+       ["--n-refs", str(N_REFS), "--batch", str(b), "--topk", str(k)])
+      for b in (B_MAIN, B_AMPLICON) for k in (256, 1000)),
+    ("sina_tpu_torch.tools.prof_profiledp", []),
+    ("sina_tpu_torch.tools.prof_profiledp",
+     ["--c", "512", "--m", "256", "--batch", str(B_AMPLICON)]),
+    ("sina_tpu_torch.tools.prof_wire_ab", []),
+    ("sina_tpu_torch.tools.diag_accuracy", ["--engine", "graph"]),
+    ("sina_tpu_torch.tools.diag_accuracy", ["--engine", "profile"]),
+)
+TOOL_CHILD_TIMEOUT = 300
+
+
+def tool_start(module: str, args: list) -> tuple:
+    """Start `python -m module args` in a child process from the repo's
+    root; tool_wait collects it."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, module, args, time.perf_counter()
+
+
+def tool_wait(child: tuple, tag: str) -> str:
+    """Wait for a tool_start child, which must exit 0 within
+    TOOL_CHILD_TIMEOUT seconds; prints its stdout lines after `tag` and
+    returns them."""
+    proc, module, args, t0 = child
+    try:
+        out, err = proc.communicate(timeout=TOOL_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    name = " ".join([module.rsplit(".", 1)[-1], *args])
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: python -m {module} {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{out[-2000:]}\n{err[-3000:]}")
+    for line in out.splitlines():
+        say(f"{tag} {name} | {line}")
+    say(f"{tag} {name}: exit 0 in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_entry_and_tools(dev) -> None:
+    """graft_entry.entry() on the card against its plain run on the cpu
+    (vals, ids, best_j, best_i and raw equal), its kernels launched;
+    then TOOL_CHILDREN, each exiting 0, diag_accuracy's summary line
+    equal to its cpu run's."""
+    import torch
+
+    from sina_tpu_torch import graft_entry
+    from sina_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fn, args = graft_entry.entry(dev)
+    kernels.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launched = {k: kernels.launches[k] for k in ("kmer_score", "graph_dp_dense")}
+    cfn, cargs = graft_entry.entry("cpu")
+    want = cfn(*cargs)
+    for name, a, b in zip(("vals", "ids", "best_j", "best_i", "raw"), got, want):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"phase 23 entry(): {name} differs from the cpu's")
+    if launched != {"kmer_score": 1, "graph_dp_dense": 1}:
+        raise AssertionError(f"phase 23 entry(): launches {launched}")
+    say(f"phase 23 entry() on {dev}: {[tuple(t.shape) for t in got]}, equal to the cpu's "
+        f"(vals, ids, best_j, best_i, raw exact); launches {launched}")
+    peak_memory("phase 23 (entry)")
+    del got, want, args
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"phase 23 before the child processes: {free / 1e9:.2f} of {total / 1e9:.2f} GB of "
+        f"device memory free")
+    timed = [c for c in TOOL_CHILDREN if not c[0].endswith("diag_accuracy")]
+    for module, extra in timed:
+        tool_wait(tool_start(module, extra), "phase 23")
+    # diag_accuracy times nothing: its cpu runs go beside its card runs
+    diag = [c for c in TOOL_CHILDREN if c not in timed]
+    cpu = [tool_start(module, extra + ["--device", "cpu"]) for module, extra in diag]
+    try:
+        for (module, extra), twin in zip(diag, cpu):
+            card = tool_wait(tool_start(module, extra), "phase 23").splitlines()[0]
+            plain = tool_wait(twin, "phase 23 cpu").splitlines()[0]
+            if card != plain:
+                raise AssertionError(f"phase 23 diag_accuracy {extra}: summary {card!r} "
+                                     f"differs from the cpu's {plain!r}")
+    finally:
+        for proc, *_ in cpu:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    say(f"phase 23 on {gpu_line()}: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     import torch
 
@@ -3325,6 +3454,8 @@ def main() -> int:
         lap("21")
         phase_bench(dev, tmp, finder, db)
         lap("22")
+        phase_entry_and_tools(dev)
+        lap("23")
     # each kernel's launches from the path that runs it
     launches.update({k: glaunches[k] for k in ("graph_dp", "graph_traceback")})
     launches.update({k: dlaunches[k] for k in ("graph_dp_dense", "graph_traceback_dense")})

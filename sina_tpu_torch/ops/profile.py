@@ -8,10 +8,11 @@ imports jax, so it cannot be reused by import.  The device half is
 torch: ``profile_dp_dispatch`` writes one bucket into one wire buffer
 (the JAX package's layout, with aligned segments), uploads it in one
 copy, launches the fused DP (ops/profile_kernel.profile_dp) and the
-chain traceback on views of it, and starts the result's copy to the
-host (ops/transfer); ``profile_dp_fetch`` waits for that copy and
-returns numpy (emit, best_c, best_i, raw); ``profile_dp_batch`` does
-both.
+chain traceback on views of it (``profile_dp_wire``; the same on
+three separate device arrays is ``profile_dp_result``), and starts the
+result's copy to the host (ops/transfer); ``profile_dp_fetch`` waits
+for that copy and returns numpy (emit, best_c, best_i, raw);
+``profile_dp_batch`` does both.
 """
 
 from __future__ import annotations
@@ -506,31 +507,51 @@ def profile_dp_dispatch(
         wire_d = transfer.upload(wire, device)
         transfer.release(wire, device)
     with t.section("launch"):
-        fg_d, qm_d, lens_d, fi_d, bud_d = _split_wire(wire_d, segs, C, M)
-        bp, bc, bi, raw = profile_dp(fg_d, qm_d, lens_d, params, fi_d, bud_d)
-        emit = chain_traceback(bp, bc, bi)
-        # one (B_pad, M+3) int32 result = one device-to-host copy
-        out = torch.cat(
-            [emit, bc[:, None], bi[:, None],
-             raw.view(torch.int32)[:, None]],
-            dim=1,
-        )
+        out = profile_dp_wire(wire_d, segs, C, M, params)
         fetch = transfer.fetch_async(out)
     return out, fetch, B
+
+
+def profile_dp_result(fgq, qmask, lens, params: DpParams, fam_idx=None,
+                      budget=None) -> torch.Tensor:
+    """The profile DP and its traceback on device-resident inputs (see
+    profile_dp), packed as one (B, M+3) int32 result [emit | best_c |
+    best_i | raw's bits], one device-to-host copy (unpack_result reads
+    it): the direct multi-array entry, the counterpart of the JAX
+    package's _profile_pallas_fn."""
+    bp, bc, bi, raw = profile_dp(fgq, qmask, lens, params, fam_idx, budget)
+    emit = chain_traceback(bp, bc, bi)
+    return torch.cat(
+        [emit, bc[:, None], bi[:, None], raw.view(torch.int32)[:, None]],
+        dim=1,
+    )
+
+
+def profile_dp_wire(wire: torch.Tensor, segs: dict, C: int, M: int,
+                    params: DpParams) -> torch.Tensor:
+    """profile_dp_result on the segments of one wire buffer already on
+    the device (laid out by _wire_layout): the one-wire entry, the
+    counterpart of the JAX package's _profile_wire_fn."""
+    fg_d, qm_d, lens_d, fi_d, bud_d = _split_wire(wire, segs, C, M)
+    return profile_dp_result(fg_d, qm_d, lens_d, params, fi_d, bud_d)
+
+
+def unpack_result(packed: np.ndarray):
+    """A profile_dp_result fetched to the host -> numpy (emit (B, M),
+    best_c, best_i, raw)."""
+    return (
+        packed[:, :-3],
+        packed[:, -3],
+        packed[:, -2],
+        packed[:, -1].copy().view(np.float32),
+    )
 
 
 def profile_dp_fetch(handle):
     """Fetch a profile_dp_dispatch result: numpy (emit (B, M),
     best_c, best_i, raw).  Waits for this launch's copy only."""
     _, fetch, B = handle
-    packed = fetch.result()[:B]
-    emit = packed[:, :-3]
-    return (
-        emit,
-        packed[:, -3],
-        packed[:, -2],
-        packed[:, -1].copy().view(np.float32),
-    )
+    return unpack_result(fetch.result()[:B])
 
 
 def profile_dp_batch(freqs, gapcost, qmask, qlen, c_real, params: DpParams,

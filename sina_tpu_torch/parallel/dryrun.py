@@ -15,38 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..graft_entry import tiny_problem
 from ..ops import kmer_kernel as kk
 from ..ops.align_kernel import DpParams
-from ..ops.graph import build_graph, pad_graph
 from ..ops.graph_kernel import (
     graph_dp, graph_traceback, pack_graph_host, pick_k_ring,
 )
-from ..ops.kmer import query_kmers_padded
-from ..ops.kmer_index import KmerIndex
 from .sharding import make_mesh, place_shards, shard_index_matrix, sharded_search
-
-
-def _tiny_problem(n_seqs=32, width=96, n_queries=8, k=4):
-    """__graft_entry__.py _tiny_problem: a small reference, its packed
-    k-mer index, the queries' k-mers, the graph of its first 8
-    sequences padded to 128 nodes, and the queries' first 64 bases."""
-    from .. import testing
-
-    db = testing.make_reference(n_seqs=n_seqs, n_core=width // 2, width=width, seed=77)
-    P = KmerIndex.build(db, k=k, fast=False).dense_packed()
-    queries = [testing.unaligned_copy(q)
-               for q in testing.make_queries(db, n=n_queries, seed=3)]
-    kmers, _ = query_kmers_padded([q.masks for q in queries], k, fast=False, pad_to=64)
-    g = build_graph(db.sequences[:8])
-    n_real = g.n_nodes
-    g = pad_graph(g, 128)
-    qm = np.zeros((n_queries, 64), dtype=np.uint8)
-    ql = np.zeros(n_queries, dtype=np.int32)
-    for i, q in enumerate(queries):
-        m = min(len(q.masks), 64)
-        qm[i, :m] = q.masks[:m]
-        ql[i] = m
-    return P, kmers, g, n_real, qm, ql
 
 
 def _graph_dp_rows(g, n_real: int, qm: np.ndarray, ql: np.ndarray, device):
@@ -86,7 +61,7 @@ def dryrun_multichip(devices) -> None:
     mesh = make_mesh(devices)
     dp, mp = mesh.shape["dp"], mesh.shape["mp"]
 
-    P, kmers, g, n_real, qm, ql = _tiny_problem(n_seqs=8 * mp, n_queries=4 * dp)
+    P, kmers, g, n_real, qm, ql = tiny_problem(n_seqs=8 * mp, n_queries=4 * dp)
     # pad the packed byte axis to whole 4-byte words a shard (the
     # scorer kernel copies 4-byte words)
     Sb = P.shape[1]

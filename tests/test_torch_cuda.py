@@ -1293,3 +1293,45 @@ def test_dispatch_does_not_synchronise(cuda, engine):
         assert kernels.launches["graph_dense_route"] == get_timer("GraphDP").counts["launch"] > 0
     bufs = transfer.pool_buffers()
     assert bufs and all(b.is_pinned() for b in bufs)
+
+
+def test_graft_entry_on_the_card_equals_the_cpu(cuda):
+    """graft_entry.entry()'s step on the card launches the scorer and
+    the dense DP once each and equals its plain run on the cpu."""
+    from sina_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(cuda)
+    before = dict(kernels.launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["kmer_score"] == before["kmer_score"] + 1
+    assert kernels.launches["graph_dp_dense"] == before["graph_dp_dense"] + 1
+    cfn, cargs = graft_entry.entry("cpu")
+    _equal(got, cfn(*cargs))
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("prof_famfinder", ["--n-refs", "40000", "--batch", "8", "--kmer-l", "64", "--k", "8",
+                        "--topk", "64"]),
+    ("prof_profiledp", ["--c", "96", "--m", "64", "--batch", "8", "--reps", "2"]),
+    ("prof_wire_ab", ["--c", "96", "--m", "64", "--b", "16", "--reps", "2"]),
+])
+def test_tools_run_on_the_card(cuda, name, argv, capsys):
+    """Each profiler runs on the card by default at small shapes."""
+    import importlib
+
+    mod = importlib.import_module(f"sina_tpu_torch.tools.{name}")
+    assert mod.main(argv) == 0
+    assert capsys.readouterr().out.startswith(f"device={torch.cuda.get_device_name(0)}")
+
+
+@pytest.mark.parametrize("engine", ["graph", "profile"])
+def test_diag_accuracy_on_the_card_equals_the_cpu(cuda, engine, capsys):
+    from sina_tpu_torch.tools import diag_accuracy
+
+    argv = ["--engine", engine, "--n-seqs", "60", "--n-core", "200", "--width", "400",
+            "--step", "10"]
+    assert diag_accuracy.main(argv) == 0
+    got = capsys.readouterr().out
+    assert diag_accuracy.main(argv + ["--device", "cpu"]) == 0
+    assert got == capsys.readouterr().out

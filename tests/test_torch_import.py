@@ -51,6 +51,12 @@ PORT_MODULES = [
     "sina_tpu_torch.parallel.sharding",
     "sina_tpu_torch.parallel.multihost",
     "sina_tpu_torch.parallel.dryrun",
+    "sina_tpu_torch.graft_entry",
+    "sina_tpu_torch.tools",
+    "sina_tpu_torch.tools.prof_famfinder",
+    "sina_tpu_torch.tools.prof_profiledp",
+    "sina_tpu_torch.tools.prof_wire_ab",
+    "sina_tpu_torch.tools.diag_accuracy",
 ]
 
 # installs a sys.meta_path hook that makes every import of jax, jaxlib
@@ -150,6 +156,32 @@ def test_bench_torch_runs_without_jax(tmp_path):
     lines = res.stdout.strip().splitlines()
     assert lines[-1] == "ok"
     assert [json.loads(ln)["unit"] for ln in lines[:-1]] == ["seq/s", "seq/s"]
+
+
+def test_graft_entry_and_tools_run_without_jax(tmp_path):
+    """python -m sina_tpu_torch.graft_entry and each of the port's tools,
+    with jax and sina_tpu blocked, run on the CPU at tiny shapes."""
+    code = (
+        "from sina_tpu_torch import graft_entry\n"
+        "from sina_tpu_torch.tools import diag_accuracy, prof_famfinder, prof_profiledp, "
+        "prof_wire_ab\n"
+        "assert graft_entry.main(['--device', 'cpu']) == 0\n"
+        "assert prof_famfinder.main(['--n-refs', '9000', '--batch', '2', '--kmer-l', '16',\n"
+        "                            '--k', '5', '--topk', '8', '--device', 'cpu']) == 0\n"
+        "assert prof_profiledp.main(['--c', '24', '--m', '32', '--batch', '2', '--reps', '1',\n"
+        "                            '--device', 'cpu']) == 0\n"
+        "assert prof_wire_ab.main(['--c', '24', '--m', '32', '--b', '16', '--reps', '1',\n"
+        "                          '--device', 'cpu']) == 0\n"
+        "assert diag_accuracy.main(['--engine', 'profile', '--n-seqs', '40', '--n-core', '200',\n"
+        "                           '--width', '400', '--step', '20', '--device', 'cpu']) == 0\n"
+        + NOTHING_BLOCKED_LOADED +
+        "print('ok')\n"
+    )
+    res = _run(code, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[0].startswith("entry ok:") and lines[-1] == "ok"
+    assert any(ln.startswith("n=2 avg_sps=") for ln in lines)
 
 
 def test_cli_turn_and_search_without_jax(tmp_path):
