@@ -2417,7 +2417,7 @@ def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, lis
     from sina_tpu_torch.align import AlignerConfig
     from sina_tpu_torch.famfinder import FamFinder, FamFinderConfig
     from sina_tpu_torch.ops import kernels, transfer
-    from sina_tpu_torch.timing import _registry, get_timer, reset_all
+    from sina_tpu_torch.timing import _registry, counters, get_timer, reset_all
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2442,6 +2442,7 @@ def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, lis
     buckets = get_timer("GraphDP").counts["launch"]
     reset_all()
     transfer.reset_counts()
+    counts0 = dict(counters)
     t0 = time.perf_counter()
     aligned += _run_batches(finder, batches[1:], acfg, dev)
     torch.cuda.synchronize()
@@ -2449,7 +2450,8 @@ def phase_indel_path(dev, tmp: Path, ddb, t_ddb: float) -> tuple[dict, list, lis
     report_transfers("phase 18", len(batches) - 1)
     launches = dict(kernels.launches)
     buckets += get_timer("GraphDP").counts["launch"]
-    shapes = {k: n for k, n in get_timer("GraphDP").counts.items() if k.startswith("bucket ")}
+    shapes = {k[len("graph_dp."):]: n - counts0.get(k, 0) for k, n in counters.items()
+              if k.startswith("graph_dp.bucket ") and n > counts0.get(k, 0)}
     n_steady = N_INDEL_QUERIES - B_MAIN
     for name, t in _registry.items():
         say(f"  timings {name}: {t}")

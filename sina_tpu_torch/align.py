@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import alphabet
+from . import alphabet, timing
 from .cache import IdentityCache
 from .comparator import Comparator, IUPAC_OPTIMISTIC, COVER_OVERLAP
 from .sequence import Sequence
@@ -130,7 +130,7 @@ class AlignmentFailure(Exception):
 # Normalized base-string cache for try_copy_alignment: family members
 # are the db's shared Sequence objects repeated across queries and
 # batches, so to_chars + upper + replace runs once per member.
-_norm_bases_cache = IdentityCache(65536)  # ~100MB worst case
+_norm_bases_cache = IdentityCache(65536, "norm_bases")  # ~100MB worst case
 
 
 def _norm_bases(seq: Sequence) -> str:
@@ -380,8 +380,8 @@ def _count_cols_batch(
 # columns (one bitmap pass over the flat base store, computed once
 # per db) and per-top-reference anchor tables (persist across
 # batches: dereplicated amplicon workloads repeat top refs).
-_db_cols_cache = IdentityCache(1)  # one db at a time
-_anchor_cache = IdentityCache(8192)  # ~200MB worst case
+_db_cols_cache = IdentityCache(1, "db_cols")  # one db at a time
+_anchor_cache = IdentityCache(8192, "anchor")  # ~200MB worst case
 
 
 def _db_occupied_cols(seq) -> np.ndarray | None:
@@ -600,64 +600,61 @@ def align_dispatch(
 
     todo = []  # (idx, q_upper, template, cw, refs, log)
     graph_cache: dict[tuple, LinearGraph] = {}
-    _tcopy = get_timer("Aligner").section("copy path")
-    _tcopy.__enter__()
-    with get_timer("Aligner").section("copy: containment"):
-        cont = _containment_batch(queries, families)
-    if cont is None and any(families):
-        # the native batch declined (no lib / mixed or missing flat
-        # stores) — the per-query string path below costs far more
-        # host time, so make that visible in the timings
-        get_timer("Aligner").sections["copy: string fallback"] += 0.0
-        get_timer("Aligner").counts["copy: string fallback"] += 1
-    for idx, (query, family) in enumerate(zip(queries, families)):
-        if not family:
-            continue
-        log: list[str] = []
-        copied, family = try_copy_alignment(
-            query, family, cfg, log,
-            offsets=cont.get(idx) if cont is not None else None,
-        )
-        # the reference's tray shares the family vector, so later
-        # stages see the aligner's filtering (align.cpp:337-345);
-        # mirror that by updating the caller's list in place
-        families[idx] = family
-        if copied is not None:
-            copied.set_attr("align_log_slv", " ".join(log))
-            results[idx] = copied
-            continue
-        if not family:
-            continue
-        refs = [it[1] for it in family]
-        top_score = family[0][0]  # dist for the subst-matrix scheme
-        if engine == "graph":
-            # identical families (shared Sequence objects from the
-            # famfinder) build one graph, like the profile dedup;
-            # graphs for the whole batch build in one parallel native
-            # pass after this loop (build_graphs_batch)
-            gkey = tuple(id(r) for r in refs)
-            template = graph_cache.get(gkey)
-            if col_weights_list[idx] is not None:
-                cw = np.ones(refs[0].width + 2, dtype=np.float32)
-                w = col_weights_list[idx]
-                cw[: len(w)] = w
+    with get_timer("Aligner").section("copy path"):
+        with get_timer("Aligner").section("copy: containment"):
+            cont = _containment_batch(queries, families)
+        if cont is None and any(families):
+            # the native batch declined (no lib / mixed or missing flat
+            # stores) — the per-query string path below costs far more
+            # host time, so make that visible in the counters
+            timing.count("align.copy_string_fallback")
+        for idx, (query, family) in enumerate(zip(queries, families)):
+            if not family:
+                continue
+            log: list[str] = []
+            copied, family = try_copy_alignment(
+                query, family, cfg, log,
+                offsets=cont.get(idx) if cont is not None else None,
+            )
+            # the reference's tray shares the family vector, so later
+            # stages see the aligner's filtering (align.cpp:337-345);
+            # mirror that by updating the caller's list in place
+            families[idx] = family
+            if copied is not None:
+                copied.set_attr("align_log_slv", " ".join(log))
+                results[idx] = copied
+                continue
+            if not family:
+                continue
+            refs = [it[1] for it in family]
+            top_score = family[0][0]  # dist for the subst-matrix scheme
+            if engine == "graph":
+                # identical families (shared Sequence objects from the
+                # famfinder) build one graph, like the profile dedup;
+                # graphs for the whole batch build in one parallel native
+                # pass after this loop (build_graphs_batch)
+                gkey = tuple(id(r) for r in refs)
+                template = graph_cache.get(gkey)
+                if col_weights_list[idx] is not None:
+                    cw = np.ones(refs[0].width + 2, dtype=np.float32)
+                    w = col_weights_list[idx]
+                    cw[: len(w)] = w
+                else:
+                    cw = _ones_cw(refs[0].width)
+                n_shape = template.n_nodes if template is not None else -1
             else:
+                # profile construction happens batched per bucket; only
+                # the occupied-column count is needed for bucketing and
+                # is computed in one batched pass after this loop
+                n_shape = -1
+                template = None
                 cw = _ones_cw(refs[0].width)
-            n_shape = template.n_nodes if template is not None else -1
-        else:
-            # profile construction happens batched per bucket; only
-            # the occupied-column count is needed for bucketing and
-            # is computed in one batched pass after this loop
-            n_shape = -1
-            template = None
-            cw = _ones_cw(refs[0].width)
-        q = query.copy()
-        if cfg.lowercase != LOWERCASE_ORIGINAL:
-            q.upper_case_all()
-        todo.append(
-            [idx, q, template, cw, refs, log, n_shape, top_score]
-        )
-    _tcopy.__exit__(None, None, None)
+            q = query.copy()
+            if cfg.lowercase != LOWERCASE_ORIGINAL:
+                q.upper_case_all()
+            todo.append(
+                [idx, q, template, cw, refs, log, n_shape, top_score]
+            )
 
     if todo and engine == "graph":
         from .ops.graph import build_graphs_batch
@@ -961,8 +958,7 @@ def _dispatch_graph_bucket(
 
     tg = get_timer("GraphDP")
     # the bucket shapes formed, with their query counts
-    tg.sections[f"bucket {npad}x{mpad}"] += 0.0
-    tg.counts[f"bucket {npad}x{mpad}"] += len(items)
+    timing.count(f"graph_dp.bucket {npad}x{mpad}", len(items))
     subst = None
     if cfg.use_subst_matrix:
         # experimental matrix scheme: per-family log-odds matrix from
@@ -1181,56 +1177,54 @@ def _dispatch_profile_bucket(
     # window.  Everything downstream (ws ranks, slices, finalize)
     # already works in the returned cols space.
     fam_windows = None
-    _twin = t.section("window calc")
-    _twin.__enter__()
-    if any_win and not aspace:
-        from .ops.profile import can_window_batch
+    with t.section("window calc"):
+        if any_win and not aspace:
+            from .ops.profile import can_window_batch
 
-        if can_window_batch(ffams):
-            nf = len(ffams)
-            wlo: list[int | None] = [None] * nf
-            whi: list[int | None] = [None] * nf
-            full_fam = [False] * nf
-            for b, it in enumerate(items):
-                fi = int(item_fi[b])
-                win = it[8] if len(it) > 8 else 0
-                if win == 0:
-                    full_fam[fi] = True
-                else:
-                    wlo[fi] = (
-                        win[0] if wlo[fi] is None
-                        else min(wlo[fi], win[0])
-                    )
-                    whi[fi] = (
-                        win[1] if whi[fi] is None
-                        else max(whi[fi], win[1])
-                    )
-            fam_windows = [
-                None
-                if full_fam[fi] or wlo[fi] is None
-                else (wlo[fi], whi[fi])
-                for fi in range(nf)
+            if can_window_batch(ffams):
+                nf = len(ffams)
+                wlo: list[int | None] = [None] * nf
+                whi: list[int | None] = [None] * nf
+                full_fam = [False] * nf
+                for b, it in enumerate(items):
+                    fi = int(item_fi[b])
+                    win = it[8] if len(it) > 8 else 0
+                    if win == 0:
+                        full_fam[fi] = True
+                    else:
+                        wlo[fi] = (
+                            win[0] if wlo[fi] is None
+                            else min(wlo[fi], win[0])
+                        )
+                        whi[fi] = (
+                            win[1] if whi[fi] is None
+                            else max(whi[fi], win[1])
+                        )
+                fam_windows = [
+                    None
+                    if full_fam[fi] or wlo[fi] is None
+                    else (wlo[fi], whi[fi])
+                    for fi in range(nf)
+                ]
+                if not any(w is not None for w in fam_windows):
+                    fam_windows = None
+        if fam_windows is not None:
+            widx = [
+                fi for fi, w in enumerate(fam_windows) if w is not None
             ]
-            if not any(w is not None for w in fam_windows):
-                fam_windows = None
-    if fam_windows is not None:
-        widx = [
-            fi for fi, w in enumerate(fam_windows) if w is not None
-        ]
-        wcounts = _count_cols_range_batch(
-            [ffams[fi] for fi in widx],
-            np.array([fam_windows[fi][0] for fi in widx], np.int64),
-            np.array([fam_windows[fi][1] for fi in widx], np.int64),
-        )
-        if wcounts is None:
-            fam_windows = None
-        else:
-            wc = {fi: int(c) for fi, c in zip(widx, wcounts)}
-            c_need = max(
-                wc.get(fi, c)
-                for fi, c in fam_full_c.items()
+            wcounts = _count_cols_range_batch(
+                [ffams[fi] for fi in widx],
+                np.array([fam_windows[fi][0] for fi in widx], np.int64),
+                np.array([fam_windows[fi][1] for fi in widx], np.int64),
             )
-    _twin.__exit__(None, None, None)
+            if wcounts is None:
+                fam_windows = None
+            else:
+                wc = {fi: int(c) for fi, c in zip(widx, wcounts)}
+                c_need = max(
+                    wc.get(fi, c)
+                    for fi, c in fam_full_c.items()
+                )
     # sliced-row path needed when any row is a window, or when a
     # length-trimmed window starting at column 0 left the bucket cpad
     # smaller than the family's full span
@@ -1250,81 +1244,82 @@ def _dispatch_profile_bucket(
         fgq_f, cols_list = build_profiles_packed_batch(
             ffams, cpad_build, params, windows=fam_windows
         )
-    _tpack = t.section("pack rows")
-    _tpack.__enter__()
-    # raw column windows -> family occupied-column start ranks
-    # (snapped to the shared SNAP_GRID so repeated queries dedup —
-    # the grid size is included in _trim_windows' size estimate),
-    # then unique (family, start) pairs become the device rows
-    from .ops.colspan import SNAP_GRID
+    with t.section("pack rows"):
+        # raw column windows -> family occupied-column start ranks
+        # (snapped to the shared SNAP_GRID so repeated queries dedup —
+        # the grid size is included in _trim_windows' size estimate),
+        # then unique (family, start) pairs become the device rows
+        from .ops.colspan import SNAP_GRID
 
-    rkeys: dict[tuple, int] = {}
-    row_fam: list[int] = []
-    row_ws: list[int] = []
-    fam_idx = np.zeros(B, dtype=np.int32)
-    for b, it in enumerate(items):
-        fi = int(item_fi[b])
-        win = it[8] if len(it) > 8 else 0
-        if win != 0:
-            ws = (
-                int(np.searchsorted(cols_list[fi], win[0]))
-                // SNAP_GRID
-            ) * SNAP_GRID
+        rkeys: dict[tuple, int] = {}
+        row_fam: list[int] = []
+        row_ws: list[int] = []
+        fam_idx = np.zeros(B, dtype=np.int32)
+        for b, it in enumerate(items):
+            fi = int(item_fi[b])
+            win = it[8] if len(it) > 8 else 0
+            if win != 0:
+                ws = (
+                    int(np.searchsorted(cols_list[fi], win[0]))
+                    // SNAP_GRID
+                ) * SNAP_GRID
+            else:
+                ws = 0
+            rk = (fi, ws)
+            u = rkeys.get(rk)
+            if u is None:
+                u = len(row_fam)
+                rkeys[rk] = u
+                row_fam.append(fi)
+                row_ws.append(ws)
+            fam_idx[b] = u
+        U = len(row_fam)
+        dedup = U < B
+        # the dedup ratio U/B of the profile rows
+        timing.count("profile.rows", B)
+        timing.count("profile.distinct", U)
+        if trimmed or len(ffams) < U:
+            # materialise the device rows: window slices of the full
+            # packed profiles (zero-padded past each family's end)
+            fgq = np.zeros((U, cpad, 6), dtype=np.uint8)
+            for u in range(U):
+                fi, ws = row_fam[u], row_ws[u]
+                n = min(cpad, cpad_build - ws)
+                fgq[u, :n] = fgq_f[fi, ws : ws + n]
         else:
-            ws = 0
-        rk = (fi, ws)
-        u = rkeys.get(rk)
-        if u is None:
-            u = len(row_fam)
-            rkeys[rk] = u
-            row_fam.append(fi)
-            row_ws.append(ws)
-        fam_idx[b] = u
-    U = len(row_fam)
-    dedup = U < B
-    if trimmed or len(ffams) < U:
-        # materialise the device rows: window slices of the full
-        # packed profiles (zero-padded past each family's end)
-        fgq = np.zeros((U, cpad, 6), dtype=np.uint8)
-        for u in range(U):
+            fgq = fgq_f[:, :cpad]
+        if dedup:
+            # bucket U to the next power of two for stable compile shapes
+            upad = min(B, 1 << max(U - 1, 0).bit_length())
+            if upad > U:
+                fgq = np.pad(fgq, ((0, upad - U), (0, 0), (0, 0)))
+        qmask = np.zeros((B, mpad), dtype=np.uint8)
+        ql = np.zeros(B, dtype=np.int32)
+        cr = np.zeros(B, dtype=np.int32)
+        budget = np.zeros((B, cpad), dtype=np.int32) if aspace else None
+        for b, it in enumerate(items):
+            q = it[1]
+            u = int(fam_idx[b])
             fi, ws = row_fam[u], row_ws[u]
-            n = min(cpad, cpad_build - ws)
-            fgq[u, :n] = fgq_f[fi, ws : ws + n]
-    else:
-        fgq = fgq_f[:, :cpad]
-    if dedup:
-        # bucket U to the next power of two for stable compile shapes
-        upad = min(B, 1 << max(U - 1, 0).bit_length())
-        if upad > U:
-            fgq = np.pad(fgq, ((0, upad - U), (0, 0), (0, 0)))
-    qmask = np.zeros((B, mpad), dtype=np.uint8)
-    ql = np.zeros(B, dtype=np.int32)
-    cr = np.zeros(B, dtype=np.int32)
-    budget = np.zeros((B, cpad), dtype=np.int32) if aspace else None
-    for b, it in enumerate(items):
-        q = it[1]
-        u = int(fam_idx[b])
-        fi, ws = row_fam[u], row_ws[u]
-        cols_f = cols_list[fi]
-        Cf = len(cols_f)
-        end = min(ws + cpad, Cf)
-        wl = end - ws
-        qmask[b, : len(q.masks)] = q.masks
-        ql[b] = len(q.masks)
-        cr[b] = wl
-        if aspace and wl > 0:
-            # free columns between occupied columns (mesh.h:480-484);
-            # a trimmed window's last slot gets the gap to the next
-            # occupied column outside the window
-            budget[b, : wl - 1] = (
-                np.diff(cols_f[ws:end].astype(np.int64)) - 1
-            )
-            budget[b, wl - 1] = (
-                width - int(cols_f[-1]) - 1
-                if end == Cf
-                else int(cols_f[end]) - int(cols_f[end - 1]) - 1
-            )
-    _tpack.__exit__(None, None, None)
+            cols_f = cols_list[fi]
+            Cf = len(cols_f)
+            end = min(ws + cpad, Cf)
+            wl = end - ws
+            qmask[b, : len(q.masks)] = q.masks
+            ql[b] = len(q.masks)
+            cr[b] = wl
+            if aspace and wl > 0:
+                # free columns between occupied columns (mesh.h:480-484);
+                # a trimmed window's last slot gets the gap to the next
+                # occupied column outside the window
+                budget[b, : wl - 1] = (
+                    np.diff(cols_f[ws:end].astype(np.int64)) - 1
+                )
+                budget[b, wl - 1] = (
+                    width - int(cols_f[-1]) - 1
+                    if end == Cf
+                    else int(cols_f[end]) - int(cols_f[end - 1]) - 1
+                )
     with t.section("profile dp dispatch"):
         handle = profile_dp_dispatch(
             fgq, qmask, ql, cr, params, device,

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Callable, TypeVar
 
+from .timing import count
+
 K = TypeVar("K")
 V = TypeVar("V")
 
@@ -26,27 +28,35 @@ class IdentityCache:
     ``max_entries`` the whole cache is cleared: the workloads' steady
     -state working sets sit far below the bound, so precise eviction
     isn't worth the bookkeeping (same policy the three original
-    call-site caches used).
+    call-site caches used).  Hits, misses and clears are counted as
+    ``cache.<name>.hit`` / ``.miss`` / ``.clear`` (``timing.count``).
     """
 
-    __slots__ = ("_entries", "max_entries")
+    __slots__ = ("_entries", "max_entries", "_hit", "_miss", "_clear")
 
-    def __init__(self, max_entries: int):
+    def __init__(self, max_entries: int, name: str):
         self._entries: dict[int, tuple] = {}
         self.max_entries = max_entries
+        self._hit = f"cache.{name}.hit"
+        self._miss = f"cache.{name}.miss"
+        self._clear = f"cache.{name}.clear"
 
     def get(self, obj: K, build: Callable[[K], V]) -> V:
         """Return the cached value for ``obj``, building (and
         caching) it with ``build(obj)`` on a miss."""
         ent = self._entries.get(id(obj))
         if ent is None or ent[0] is not obj:
+            count(self._miss)
             if len(self._entries) > self.max_entries:
                 self.clear()
             ent = (obj, build(obj))
             self._entries[id(obj)] = ent
+        else:
+            count(self._hit)
         return ent[1]
 
     def clear(self) -> None:
+        count(self._clear)
         self._entries.clear()
 
     def __len__(self) -> int:

@@ -31,7 +31,8 @@ def _profiled(trace_dir: str, device):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
+    # record_shapes: the program's spans carry their batch ids as inputs
+    return profile(activities=activities, record_shapes=True,
                    on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 

@@ -24,6 +24,7 @@ from .ops.kmer import query_kmers_padded
 from .ops.kmer_index import KmerIndex, device_matrix
 from .refdb import ReferenceDb
 from .sequence import Sequence
+from . import timing
 from .timing import get_timer
 from .ops import transfer
 from .ops.kmer_kernel import kmer_scores, score_topk as _score_topk_device
@@ -144,29 +145,33 @@ class FamFinder:
 
     def _matrix(self) -> torch.Tensor | ShardedMatrix:
         if self._P is None:
-            if self.mesh is None:
-                self._P = device_matrix(self.index, self.device)
-                return self._P
-            mp = self.mesh.shape["mp"]
-            cap = -(-max(self.index.n_seqs, 1) // 1024) * 1024
-            if cap >= 32768:
-                # SILVA scale: per-shard exact-size tiled blocks (the
-                # single-device layout, sharded over the lane axis)
-                P = self.index.dense_packed_tiled(byte_multiple=4096 * mp)
-            else:
-                # the byte axis padded to whole 4-byte words a shard
-                # (the scorer kernel copies 4-byte words; the JAX
-                # package pads to mp).  The ids are the same: each
-                # shard holds a contiguous id range ranked lowest id
-                # first, and padding ranks after every reference
-                P = self.index.dense_packed()
-                Sb = P.shape[1]
-                Sb_pad = -(-Sb // (4 * mp)) * (4 * mp)
-                if Sb_pad != Sb:
-                    P = np.pad(P, ((0, 0), (0, Sb_pad - Sb)))
-            # slice on the host: the whole matrix never sits on one device
-            self._P = shard_index_matrix(self.mesh, P)
+            with timing.span("setup.kmer_index_upload", keep=True):
+                self._P = self._upload_matrix()
         return self._P
+
+    def _upload_matrix(self) -> torch.Tensor | ShardedMatrix:
+        """The index on the device, or sharded over the mesh."""
+        if self.mesh is None:
+            return device_matrix(self.index, self.device)
+        mp = self.mesh.shape["mp"]
+        cap = -(-max(self.index.n_seqs, 1) // 1024) * 1024
+        if cap >= 32768:
+            # SILVA scale: per-shard exact-size tiled blocks (the
+            # single-device layout, sharded over the lane axis)
+            P = self.index.dense_packed_tiled(byte_multiple=4096 * mp)
+        else:
+            # the byte axis padded to whole 4-byte words a shard
+            # (the scorer kernel copies 4-byte words; the JAX
+            # package pads to mp).  The ids are the same: each
+            # shard holds a contiguous id range ranked lowest id
+            # first, and padding ranks after every reference
+            P = self.index.dense_packed()
+            Sb = P.shape[1]
+            Sb_pad = -(-Sb // (4 * mp)) * (4 * mp)
+            if Sb_pad != Sb:
+                P = np.pad(P, ((0, 0), (0, Sb_pad - Sb)))
+        # slice on the host: the whole matrix never sits on one device
+        return shard_index_matrix(self.mesh, P)
 
     def _pad_dp(self, kmers: np.ndarray) -> np.ndarray:
         """A row-bucketed batch padded to a multiple of the mesh's dp

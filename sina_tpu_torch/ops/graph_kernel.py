@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import timing
 from . import kernels
 from .align_kernel import (
     _S_CHAIN, _S_CHAIN_NE, _S_DECIDE, _S_DONE, _S_INS, _S_RESOLVE,
@@ -421,6 +422,7 @@ def graph_dp(pos, mask, weight, predbits, flags, qmask, qlen, col_weights,
     )
     if ring is not None:
         kernels.launches["graph_dp_global_ring"] += 1
+        timing.count("graph_dp.global_ring")
     return (bp, *_decode_best(best, qlen))
 
 

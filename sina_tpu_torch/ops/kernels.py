@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from .. import timing
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -132,7 +134,8 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        so = ctypes.CDLL(str(build()))
+        with timing.span("setup.kernels", keep=True):
+            so = ctypes.CDLL(str(build()))
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
         so.sina_kmer_score.argtypes = [P, P, P, P, P, LL, LL, I, I, P]

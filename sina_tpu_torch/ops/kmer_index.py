@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import timing
 from .kmer import kmers_of_masks, BASE_A
 from ..refdb import ReferenceDb
 
@@ -72,6 +73,13 @@ class KmerIndex:
 
     @classmethod
     def build(cls, db: ReferenceDb, k: int = 10, fast: bool = True):
+        """The index of `db`: its .sidx cache, else built (and cached
+        beside a bundle)."""
+        with timing.span("setup.kmer_index_load", keep=True):
+            return cls._load_or_build(db, k, fast)
+
+    @classmethod
+    def _load_or_build(cls, db: ReferenceDb, k: int, fast: bool):
         cache = None
         if db.path is not None:
             f = "f" if fast else ""

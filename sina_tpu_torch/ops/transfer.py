@@ -25,7 +25,9 @@ the stream that reads it, and is handed out again only once that event
 has completed.  The pool holds at most ``POOL_CAP_BYTES``: past it,
 idle buffers are dropped (to PyTorch's pinned-memory cache, which
 reuses a block of the same size), then guarded ones are waited for and
-dropped; when every byte is lent, ``host_buffer`` raises.  Pinning
+dropped; when every byte is lent, ``host_buffer`` raises.  The pool
+counts its buffers lent again, made anew and dropped
+(``pinned_pool.reused`` / ``.new`` / ``.dropped``, ``timing.count``).  Pinning
 never falls back to pageable memory: a failure to pin raises.
 
 On a CPU device nothing is pinned and nothing is copied: the caller
@@ -38,6 +40,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import timing
 
 POOL_CAP_BYTES = 4 << 30
 _MIN_CLASS = 1 << 16
@@ -92,8 +96,10 @@ class _Pool:
         for s in self.slots.get(size, ()):
             if s.idle():
                 s.lent, s.event = True, None
+                timing.count("pinned_pool.reused")
                 return s
         self._make_room(size)
+        timing.count("pinned_pool.new")
         s = _Slot(self.alloc(size))
         s.lent = True
         self.slots.setdefault(size, []).append(s)
@@ -102,6 +108,7 @@ class _Pool:
         return s
 
     def _drop(self, s: _Slot) -> None:
+        timing.count("pinned_pool.dropped")
         self.slots[s.host.numel()].remove(s)
         del self.by_ptr[s.host.data_ptr()]
         self.nbytes -= s.host.numel()

@@ -19,8 +19,10 @@ import logging
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from itertools import islice
 from pathlib import Path
 
+from . import timing
 from .align import AlignerConfig, align_dispatch, align_finalize
 from .device import resolve_device
 from .famfinder import FamFinder, FamFinderConfig, FamilyResult
@@ -83,6 +85,10 @@ class PipelineConfig:
 
 class Pipeline:
     def __init__(self, cfg: PipelineConfig):
+        with timing.span("setup.pipeline", keep=True):
+            self._setup(cfg)
+
+    def _setup(self, cfg: PipelineConfig) -> None:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.db: ReferenceDb | None = None
@@ -289,21 +295,40 @@ class Pipeline:
             if (i - skip) % step == step - 1:
                 yield seq
 
+    def _batches(self):
+        """(batch id, batch) for each batch of the input, each read,
+        the wait on the input included, under a ``pipeline.read``
+        span; the last read, which finds the input's end, carries no
+        batch id."""
+        seqs = self._read_input()
+        while True:
+            with timing.span("pipeline.read", batch=timing.next_batch()) as sp:
+                batch = list(islice(seqs, self.cfg.batch_size))
+                if not batch:
+                    sp.batch = None
+                    return
+            yield sp.batch, batch
+
     def run(self) -> dict:
+        with timing.run_span("pipeline.run"):
+            return self._run()
+
+    def _run(self) -> dict:
         cfg = self.cfg
-        writers = self._open_writers()
+        with timing.span("pipeline.open"):
+            writers = self._open_writers()
         t0 = time.time()
         n_in = 0
         n_aligned = 0
         seqno = 0
-        batch: list[Sequence] = []
         progress = Progress("Processing")
         _wt = get_timer("Pipeline")
 
-        def flush(entry):
+        def flush(bid, entry):
             nonlocal n_aligned, seqno
-            rows = self._finalize_batch(entry)
-            with _wt.section("write+stats"):
+            with timing.span("pipeline.finalize", batch=bid):
+                rows = self._finalize_batch(entry)
+            with _wt.section("write+stats", batch=bid):
                 for q, a, rel in rows:
                     seqno += 1
                     self.stats(q, a, rel or [], seqno)
@@ -323,42 +348,43 @@ class Pipeline:
         # famfinder N, dispatch N's DP, then finalize N-1.  Every fetch
         # waits for its own copy only (ops/transfer: the copy starts on
         # a copy stream at launch), so N-1's finish runs on the host
-        # while N's DP and N+1's scoring run on the card
-        def submit(b):
-            return (
-                b,
-                None
-                if cfg.prealigned
-                else self.finder.submit_batch(b),
-            )
+        # while N's DP and N+1's scoring run on the card.  Each stage's
+        # span carries its batch's id, and every span inside it too
+        def submit(bid, b):
+            with timing.span("pipeline.submit", batch=bid):
+                return (
+                    bid,
+                    b,
+                    None
+                    if cfg.prealigned
+                    else self.finder.submit_batch(b),
+                )
+
+        def dispatch(bid, b, handle):
+            with timing.span("pipeline.dispatch", batch=bid):
+                al_q.append((bid, self._dispatch_batch(b, handle)))
 
         ff_q: deque = deque()   # famfinder dispatched
         al_q: deque = deque()   # DP dispatched
-        for seq in self._read_input():
-            batch.append(seq)
-            n_in += 1
-            if len(batch) >= cfg.batch_size:
-                ff_q.append(submit(batch))
-                batch = []
-                if len(ff_q) >= 2:
-                    al_q.append(
-                        self._dispatch_batch(*ff_q.popleft())
-                    )
-                if len(al_q) >= 2:
-                    flush(al_q.popleft())
-        if batch:
-            ff_q.append(submit(batch))
-        while ff_q:
-            al_q.append(self._dispatch_batch(*ff_q.popleft()))
+        for bid, batch in self._batches():
+            n_in += len(batch)
+            ff_q.append(submit(bid, batch))
+            if len(ff_q) >= 2:
+                dispatch(*ff_q.popleft())
             if len(al_q) >= 2:
-                flush(al_q.popleft())
+                flush(*al_q.popleft())
+        while ff_q:
+            dispatch(*ff_q.popleft())
+            if len(al_q) >= 2:
+                flush(*al_q.popleft())
         while al_q:
-            flush(al_q.popleft())
+            flush(*al_q.popleft())
 
-        for _, w in writers:
-            w.close()
-        progress.close()
-        self.stats.log_summary()
+        with timing.span("pipeline.close"):
+            for _, w in writers:
+                w.close()
+            progress.close()
+            self.stats.log_summary()
         elapsed = time.time() - t0
         rate = n_in / elapsed if elapsed > 0 else 0.0
         logger.warning(

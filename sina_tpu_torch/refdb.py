@@ -22,8 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from . import alphabet, timing
 from .sequence import Sequence
-from . import alphabet
 
 FORMAT_VERSION = 1
 
@@ -209,16 +209,17 @@ class ReferenceDb:
         (cached next to the input, mtime-validated like the reference's
         .sidx cache, kmer_search.cpp:226-242)."""
         path = Path(path)
-        if path.is_dir() and (path / "meta.json").exists():
-            return cls.load(path)
-        if path.suffix in (".fasta", ".fa", ".gz") or path.is_file():
-            bundle = path.with_suffix(path.suffix + ".sref")
-            if bundle.is_dir() and (bundle / "meta.json").exists():
-                if bundle.stat().st_mtime >= path.stat().st_mtime:
-                    return cls.load(bundle)
-            db = cls.from_fasta(path)
-            db.save(bundle)
-            return db
+        with timing.span("setup.refdb_open", keep=True):
+            if path.is_dir() and (path / "meta.json").exists():
+                return cls.load(path)
+            if path.suffix in (".fasta", ".fa", ".gz") or path.is_file():
+                bundle = path.with_suffix(path.suffix + ".sref")
+                if bundle.is_dir() and (bundle / "meta.json").exists():
+                    if bundle.stat().st_mtime >= path.stat().st_mtime:
+                        return cls.load(bundle)
+                db = cls.from_fasta(path)
+                db.save(bundle)
+                return db
         raise FileNotFoundError(f"Reference database {path} not found")
 
     # -- construction -------------------------------------------------
