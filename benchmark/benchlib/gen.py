@@ -17,7 +17,10 @@ the originals':
   and insertions into empty columns, a Poisson(0.003 x bl x empty)
   number of them at uniform columns (a draw that hits an occupied
   column or repeats one is dropped: about 3% of them);
-- amplicons: the 250 bases from min(400, (len - 250) // 2).
+- amplicons: the 250 bases from min(400, (len - 250) // 2);
+- turned reads (a traffic's ``turned`` share): that share of the
+  queries, drawn under a sub-seed once they are evolved and cut, is
+  reverse-complemented, as reads of the other strand arrive.
 
 Every draw comes from one ``torch.Generator`` on the device, seeded by
 the caller, in a fixed order and in fixed chunks, so the same seed on
@@ -26,10 +29,13 @@ the same kind of device gives the same arrays.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from reference.family import complement  # the one place that knows a complement
 
 # base masks in the port's alphabet order A G C U (bits 0-3)
 BASE_MASKS = (1, 2, 4, 8)
@@ -57,6 +63,12 @@ class RefArrays:
 
     def lengths(self) -> torch.Tensor:
         return self.offsets[1:] - self.offsets[:-1]
+
+
+def sub_seed(seed: int, what: str) -> int:
+    """A seed for one use of a seed (pool, warm-up, sample, turned)."""
+    h = hashlib.sha256(f"{int(seed)}:{what}".encode()).digest()
+    return int.from_bytes(h[:8], "little") >> 1
 
 
 def _gen(seed: int, device) -> torch.Generator:
@@ -163,6 +175,7 @@ class Queries:
     masks: torch.Tensor    # (E,) uint8
     offsets: torch.Tensor  # (n + 1,) int64
     parents: torch.Tensor  # (n,) int64
+    turned: torch.Tensor | None = None  # (n,) bool: reverse-complemented
 
     @property
     def n(self) -> int:
@@ -170,10 +183,13 @@ class Queries:
 
 
 def make_queries(ref: RefArrays, n: int, seed: int, branch_len: float, parents: str,
-                 amplicon: dict | None, device) -> Queries:
+                 amplicon: dict | None, device, turned: float | None = None) -> Queries:
     """`n` queries evolved off parents drawn from `ref` (make_queries'
     law), cut to amplicons when `amplicon` gives {"length", "max_start"}.
-    `parents` is "uniform": every reference is equally likely."""
+    `parents` is "uniform": every reference is equally likely.  With
+    `turned`, round(turned x n) of them, drawn under sub_seed(seed,
+    "turned"), are then reverse-complemented; without it nothing more
+    is drawn."""
     g = _gen(seed, device)
     width = ref.width
     rates_w = _rates(g, width, device)
@@ -224,7 +240,28 @@ def make_queries(ref: RefArrays, n: int, seed: int, branch_len: float, parents: 
         within = torch.arange(aq.numel(), device=device) - astart[aq]
         allm = allm[offsets[aq] + lo[aq] + within]
         offsets = astart
-    return Queries(allm, offsets, par)
+    if turned is None:
+        return Queries(allm, offsets, par)
+    allm, flip = _reverse_complement(allm, offsets, float(turned), sub_seed(seed, "turned"),
+                                     device)
+    return Queries(allm, offsets, par, flip)
+
+
+def _reverse_complement(masks: torch.Tensor, offsets: torch.Tensor, share: float, seed: int,
+                        device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flat masks with round(share x n) queries, drawn from `seed`,
+    reverse-complemented, and the (n,) mask of those queries."""
+    n = offsets.numel() - 1
+    g = _gen(seed, device)
+    flip = torch.zeros(n, dtype=torch.bool, device=device)
+    flip[torch.randperm(n, generator=g, device=device)[:int(round(share * n))]] = True
+    lens = offsets[1:] - offsets[:-1]
+    qid = torch.repeat_interleave(torch.arange(n, device=device), lens)
+    start = offsets[:-1][qid]
+    within = torch.arange(masks.numel(), device=device) - start
+    t = flip[qid]
+    out = masks[torch.where(t, start + lens[qid] - 1 - within, start + within)]
+    return torch.where(t, complement(out), out), flip
 
 
 _CHARS = np.zeros(256, dtype=np.uint8)

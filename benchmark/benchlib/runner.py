@@ -28,16 +28,11 @@ import numpy as np
 import torch
 
 from . import gen, stream
+from .gen import sub_seed
 from .gcwatch import gc_pauses
 
 HERE = Path(__file__).resolve().parent
 BENCH = HERE.parent
-
-
-def sub_seed(seed: int, what: str) -> int:
-    """A seed for one use of the run's seed (pool, warm-up, sample)."""
-    h = hashlib.sha256(f"{int(seed)}:{what}".encode()).digest()
-    return int.from_bytes(h[:8], "little") >> 1
 
 
 def say(msg: str) -> None:
@@ -227,9 +222,12 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device: str, t0
     n_warm = int(trf["warmup_batches"]) * batch
     n_pool = int(trf["pool_factor"] * trf["pool_rate"] * seconds) + batch
     law = dict(branch_len=trf["branch_len"], parents=trf["parents"],
-               amplicon=trf.get("amplicon"), device=dev)
+               amplicon=trf.get("amplicon"), device=dev, turned=trf.get("turned"))
     wq = gen.make_queries(ref, n_warm, sub_seed(seed, "warmup"), **law)
     pq = gen.make_queries(ref, n_pool, sub_seed(seed, "pool"), **law)
+    if pq.turned is not None:
+        say(f"# traffic: {int(wq.turned.sum())} of {wq.n} warm-up and "
+            f"{int(pq.turned.sum())} of {pq.n} pool queries reverse-complemented")
     masks = torch.cat([wq.masks, pq.masks])
     offsets = torch.cat([wq.offsets, pq.offsets[1:] + wq.offsets[-1]])
     allq = gen.Queries(masks, offsets, torch.cat([wq.parents, pq.parents]))
@@ -348,7 +346,7 @@ def check(cell: dict, run: dict, seed: int, device: str) -> dict:
     pm, po = run["pool"]
     nums = refcheck.compare(run["sent"], run["records"], pm, po, refx,
                             int(cell["traffic"]["check_sample"]), sub_seed(seed, "sample"),
-                            cfg["engine"])
+                            cfg, cell["traffic"], device)
     say(f"# check: {nums['_records']} records, {nums['_sampled']} sampled "
         f"({nums['_sampled_bases']} bases) in {time.time() - t:.1f} s")
     return nums

@@ -113,8 +113,9 @@ def _big_pipe(fd: int) -> None:
 def _parse(data: bytes, ends: np.ndarray, stamps: np.ndarray, keep: bool) -> dict:
     """Records of one run's output: names, arrival stamps (of the chunk
     that held each record's last byte) and, with `keep`, columns, bases,
-    used_rels and the DP's raw score."""
-    names, at, raws, rels, cols, bases = [], [], [], [], [], []
+    used_rels, the DP's raw score and every `key=value` of the record's
+    header comment (a dict a record)."""
+    names, at, raws, rels, cols, bases, kept = [], [], [], [], [], [], []
     off = 0
     attrs: dict = {}
     for line in data.split(b"\n"):
@@ -136,12 +137,13 @@ def _parse(data: bytes, ends: np.ndarray, stamps: np.ndarray, keep: bool) -> dic
                 bases.append(a[nz])
                 rels.append(attrs.get("used_rels", ""))
                 raws.append(_parse_raw(attrs.get("align_log_slv", "")))
+                kept.append(attrs)
         off = end + 1
     idx = np.searchsorted(ends, np.asarray(at, dtype=np.int64), side="right")
     out = {"names": names, "stamps": stamps[np.minimum(idx, len(stamps) - 1)]
            if len(stamps) else np.zeros(0)}
     if keep:
-        out.update(cols=cols, bases=bases, used_rels=rels, raw=np.asarray(raws))
+        out.update(cols=cols, bases=bases, used_rels=rels, raw=np.asarray(raws), attrs=kept)
     return out
 
 
@@ -155,7 +157,9 @@ def read(fifo: str) -> None:
     """Take one run's output as it comes, in raw chunks stamped on
     arrival, and parse it once the writer has closed: `keep` keeps
     every record (name, arrival, aligned columns, bases, used_rels, the
-    DP's raw score), `count` only names and arrivals."""
+    DP's raw score, its header comment's attributes), `count` only names
+    and arrivals.  Parsing waits for the close, so keeping costs the
+    window nothing."""
     for line in sys.stdin:
         keep = line.strip() == "keep"
         chunks, stamps = [], []

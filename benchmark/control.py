@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The control of the check: the plain reference put in the program's
 place, its DP computed in the precision below the configuration's
-(bfloat16 for float32), at the cell's own sizes.  Its output is written
+(bfloat16 for float32), at the cell's own sizes (the turn check, which
+counts k-mers exactly, as the reference's).  Its output is written
 as the program writes aligned FASTA, read back by the harness's reader
 and judged by the harness's own comparison and limits, as a run's
 output is; it has to come out not correct.
@@ -25,17 +26,23 @@ sys.path[:0] = [str(BENCH.parent), str(BENCH)]
 
 
 def write_records(names: list[str], queries: list[np.ndarray], fams: list[list[int]],
-                  cols: list[np.ndarray], raws: np.ndarray, width: int) -> bytes:
+                  cols: list[np.ndarray], raws: np.ndarray, width: int,
+                  turns: list[int] | None = None) -> bytes:
     """Aligned FASTA as the pipeline writes it with `--meta-fmt comment
-    --write-used-rels`: the family, the DP's raw score in align_log_slv,
-    and the row with each base at its column."""
+    --write-used-rels`: the orientation in turn_slv where `turns` gives
+    it (the queries already turned to it), the family, the DP's raw
+    score in align_log_slv, and the row with each base at its column."""
     from reference.check import _CHAR
+    from reference.family import TURN_NAMES
 
     out = []
-    for name, q, fam, c, raw in zip(names, queries, fams, cols, raws):
+    for j, (name, q, fam, c, raw) in enumerate(zip(names, queries, fams, cols, raws)):
         row = np.full(width, ord("-"), dtype=np.uint8)
         row[c] = _CHAR[q]
-        out.append(f">{name}\n; used_rels={' '.join(f'SEQ{i:06d}' for i in fam)}\n".encode())
+        out.append(f">{name}\n".encode())
+        if turns is not None:
+            out.append(f"; turn_slv={TURN_NAMES[turns[j]]}\n".encode())
+        out.append(f"; used_rels={' '.join(f'SEQ{i:06d}' for i in fam)}\n".encode())
         if not np.isnan(raw):
             out.append(f"; align_log_slv=scoring: raw={raw:.6g}, weight=0\n".encode())
         out.append(row.tobytes() + b"\n")
@@ -57,16 +64,20 @@ def verdict(cell: dict, seed: int, device: str, n: int | None = None, dtype=None
     ref = runner.make_reference(cfg, dev)
     n = n or int(trf["check_sample"])
     q = gen.make_queries(ref, n, runner.sub_seed(seed, "pool"), trf["branch_len"],
-                         trf["parents"], trf.get("amplicon"), dev)
+                         trf["parents"], trf.get("amplicon"), dev, trf.get("turned"))
     m, o = q.masks.cpu().numpy(), q.offsets.cpu().numpy()
     refx = refcheck.Reference(ref, cfg["policy"])
     queries = [m[o[i]:o[i + 1]] for i in range(q.n)]
     names = [gen.record_name(i) for i in range(q.n)]
-    fams, cols, raws = refcheck.align_sample(refx, queries, dtype or torch.bfloat16,
-                                             cfg["engine"])
-    records = stream.parse_records(write_records(names, queries, fams, cols, raws, ref.width))
+    turns, queries = refcheck.turn_sample(refx, queries, cfg["cli"])
+    ctx = {"queries": queries, "turns": turns, "refx": refx, "config": cfg, "traffic": trf,
+           "device": device, "dtype": dtype or torch.bfloat16}
+    fams, cols, raws = refcheck.reference_alignment(ctx, refcheck.load_checks(
+        cfg.get("checks", [])))
+    records = stream.parse_records(write_records(names, queries, fams, cols, raws, ref.width,
+                                                 turns))
     nums = refcheck.compare(names, records, m, o, refx, n, runner.sub_seed(seed, "sample"),
-                            cfg["engine"])
+                            cfg, trf, device)
     ok, lines, _ = bench_run.limits_lines(nums, cfg["limits"])
     return bool(ok), lines, nums
 

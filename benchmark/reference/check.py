@@ -16,15 +16,42 @@ Numbers compared, each against its limit from the configuration:
 - raw_rel_gap: the widest relative gap between a sampled record's DP
   score (raw, in its align_log_slv) and the reference's.
 
+Where the configuration's command line turns reads (`--turn`), each
+record's bases are compared with the query in the orientation its
+turn_slv names; the sample is aligned in the orientation the plain turn
+check picks, and one more number counts what it disagrees on:
+
+- turn_differs: sampled records whose turn_slv is not the plain turn
+  check's choice.
+
+A configuration's `checks` name further modules, checks/<name>.py
+(found by name in CHECK_DIRS, as the metrics are): each may give
+further numbers and may replace the reference's alignment of the
+sample.  Every number is judged by the limit of its name.
+
 Plain PyTorch and NumPy; imports nothing of the program.
 """
 
 from __future__ import annotations
 
+import ast
+import importlib.util
+import types
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from . import family, graph_dp, nast, profile_dp
+
+# where a configuration's `checks` are looked for, in order
+CHECK_DIRS = [Path(__file__).resolve().parent / "checks"]
+# what a check module may not use, by whole top-level module name: JAX,
+# the JAX package, and the program, whose answers the checks judge
+CHECK_FORBIDDEN = frozenset(("jax", "jaxlib", "flax", "sina_tpu", "sina_tpu_torch"))
+# all a check's align(ctx) is given: the sample and the reference, none
+# of the program's output (the control, which has no run, gives the same)
+ALIGN_KEYS = ("queries", "turns", "refx", "config", "traffic", "device", "dtype")
 
 _CHAR = np.zeros(256, dtype=np.uint8)
 for _m, _c in zip((1, 2, 4, 8), b"AGCU"):
@@ -149,12 +176,97 @@ def align_sample(refx: Reference, queries: list[np.ndarray], dtype=torch.float32
     return fams, cols_out, raw_out
 
 
+def turn_mode(cli: list[str]) -> str:
+    """What `-t`/`--turn` in a command line asks for: "none", "revcomp"
+    (the option alone) or "all", as the program's argparse reads it."""
+    mode = "none"
+    for j, a in enumerate(cli):
+        if a in ("-t", "--turn"):
+            nxt = cli[j + 1] if j + 1 < len(cli) else ""
+            mode = nxt if nxt in ("none", "revcomp", "all") else "revcomp"
+        elif a.startswith("--turn="):
+            mode = a.split("=", 1)[1]
+        elif a.startswith("-t") and not a.startswith("--") and len(a) > 2:
+            mode = a[2:].lstrip("=")
+    return mode
+
+
+def turn_sample(refx: Reference, queries: list[np.ndarray], cli: list[str]):
+    """(the plain turn check's orientation of each query, the queries
+    turned to it) where the command line turns reads, else (None, the
+    queries)."""
+    mode = turn_mode(cli)
+    if mode == "none":
+        return None, queries
+    turns = family.turn_check(refx.kmers, queries, mode == "all")
+    return turns, [family.orient(q, w) for q, w in zip(queries, turns)]
+
+
+def _top(name: str | None) -> str:
+    return (name or "").split(".")[0]
+
+
+def _forbidden_uses(path: Path, mod=None) -> set[str]:
+    """The forbidden top-level modules that the source at `path` imports,
+    or that the loaded `mod` holds a module or an object of."""
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            found |= {_top(a.name) for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.add(_top(node.module))
+    for v in vars(mod).values() if mod is not None else ():
+        found.add(_top(v.__name__ if isinstance(v, types.ModuleType) else
+                       getattr(v, "__module__", None)))
+    return found & CHECK_FORBIDDEN
+
+
+def load_checks(names: list[str]) -> list:
+    """The modules a configuration's `checks` name, each checks/<name>.py
+    in the first of CHECK_DIRS that holds it.  One that imports or holds
+    anything of CHECK_FORBIDDEN stops the run."""
+    mods = []
+    for name in names:
+        path = next((d / f"{name}.py" for d in CHECK_DIRS if (d / f"{name}.py").is_file()),
+                    None)
+        if path is None:
+            raise SystemExit(f"benchmark: no check module {name}.py in "
+                             f"{[str(d) for d in CHECK_DIRS]}")
+        bad = _forbidden_uses(path)
+        if not bad:
+            spec = importlib.util.spec_from_file_location(f"check_{name.replace('.', '_')}",
+                                                          path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            bad = _forbidden_uses(path, mod)
+        if bad:
+            raise SystemExit(f"benchmark: check {name} uses {sorted(bad)}, which a check "
+                             f"may not")
+        if not (hasattr(mod, "numbers") or hasattr(mod, "align")):
+            raise SystemExit(f"benchmark: check {name} has neither numbers() nor align()")
+        mods.append(mod)
+    return mods
+
+
+def reference_alignment(ctx: dict, checks: list):
+    """(families, columns, raws) of the sample's queries: a check's
+    align, given ctx's ALIGN_KEYS alone, where one gives it, else
+    align_sample in ctx's dtype and the configuration's engine."""
+    own = [m for m in checks if hasattr(m, "align")]
+    if len(own) > 1:
+        raise SystemExit("benchmark: more than one check replaces the alignment")
+    if own:
+        return own[0].align({k: ctx[k] for k in ALIGN_KEYS})
+    return align_sample(ctx["refx"], ctx["queries"], ctx["dtype"], ctx["config"]["engine"])
+
+
 def compare(sent: list[str], records: dict, pool_masks: np.ndarray, pool_offsets: np.ndarray,
-            refx: Reference, n_sample: int, seed: int, engine: str = "profile",
-            dtype=torch.float32) -> dict:
+            refx: Reference, n_sample: int, seed: int, config: dict, traffic: dict | None = None,
+            device: str = "cpu", dtype=torch.float32) -> dict:
     """The numbers compared for one window.  `sent` are the names of the
     queries sent, in order (name q<index> is pool query <index>);
-    `records` the reader's keep-mode output."""
+    `records` the reader's keep-mode output; `config` and `traffic`
+    the cell's (the engine, the command line, the checks)."""
     names = records["names"]
     n_ok = 0
     for a, b in zip(sent, names):
@@ -164,18 +276,36 @@ def compare(sent: list[str], records: dict, pool_masks: np.ndarray, pool_offsets
     lost = len(sent) - n_ok + max(0, len(names) - len(sent))
     idx = np.array([int(s[1:]) for s in sent[:n_ok]], dtype=np.int64)
     qlens = pool_offsets[idx + 1] - pool_offsets[idx]
+    turn = turn_mode(config["cli"])
+    attrs = records.get("attrs")
     altered = 0
     for k in range(n_ok):
         lo = pool_offsets[idx[k]]
-        want = _CHAR[pool_masks[lo:lo + qlens[k]]]
+        q = pool_masks[lo:lo + qlens[k]]
+        if turn != "none":
+            name = attrs[k].get("turn_slv")
+            if name not in family.TURN_NAMES:
+                altered += 1
+                continue
+            q = family.orient(q, family.TURN_NAMES.index(name))
+        want = _CHAR[q]
         got = records["bases"][k]
         if len(got) != len(want) or not np.array_equal(got, want):
             altered += 1
     pick = sample_indices(n_ok, qlens, n_sample, seed)
     queries = [pool_masks[pool_offsets[idx[k]]:pool_offsets[idx[k] + 1]] for k in pick]
-    fams, cols, raws = align_sample(refx, queries, dtype, engine)
-    fam_diff, col_diff, n_bases, gap = 0, 0, 0, 0.0
+    turns, queries = turn_sample(refx, queries, config["cli"])
+    checks = load_checks(config.get("checks", []))
+    ctx = {"sent": sent, "records": records, "n_ok": n_ok, "pool_idx": idx,
+           "pool_masks": pool_masks, "pool_offsets": pool_offsets, "pick": pick,
+           "queries": queries, "turns": turns, "refx": refx, "config": config,
+           "traffic": traffic, "device": device, "dtype": dtype}
+    fams, cols, raws = reference_alignment(ctx, checks)
+    ctx.update(fams=fams, cols=cols, raws=raws)
+    fam_diff, col_diff, n_bases, gap, turn_diff = 0, 0, 0, 0.0, 0
     for j, k in enumerate(pick):
+        if turns is not None and attrs[k].get("turn_slv") != family.TURN_NAMES[turns[j]]:
+            turn_diff += 1
         want_rels = " ".join(f"SEQ{i:06d}" for i in fams[j])
         if records["used_rels"][k] != want_rels:
             fam_diff += 1
@@ -190,13 +320,23 @@ def compare(sent: list[str], records: dict, pool_masks: np.ndarray, pool_offsets
             r = float(records["raw"][k])
             gap = max(gap, abs(r - raws[j]) / max(abs(raws[j]), 1e-30)
                       if np.isfinite(r) else float("inf"))
-    return {
+    nums = {
         "records_lost": lost,
         "bases_altered": altered,
         "family_differs": fam_diff,
         "columns_differ_pct": 100.0 * col_diff / max(n_bases, 1),
         "raw_rel_gap": gap,
-        "_sampled": len(pick),
-        "_sampled_bases": n_bases,
-        "_records": n_ok,
     }
+    if turns is not None:
+        nums["turn_differs"] = turn_diff
+    for mod in checks:
+        if not hasattr(mod, "numbers"):
+            continue
+        more = mod.numbers(ctx)
+        clash = sorted(set(more) & set(nums))
+        if clash:
+            raise SystemExit(f"benchmark: check {mod.__name__} gives numbers already given: "
+                             f"{clash}")
+        nums.update(more)
+    nums.update(_sampled=len(pick), _sampled_bases=n_bases, _records=n_ok)
+    return nums

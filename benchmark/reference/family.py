@@ -11,12 +11,18 @@ policy is famfinder.cpp:497-612: the first fs_min candidates of at
 least fs_min_len bases, then, up to fs_max, those scoring below fs_msc,
 and candidates that fill the full-length quota; the candidate list
 deepens tenfold until the quotas hold; then members with fewer than
-fs_req_gaps internal gap columns go.  Plain PyTorch on the arrays the
-benchmark generated; imports nothing of the program.
+fs_req_gaps internal gap columns go.  The turn check
+(famfinder.cpp:344-378) scores a query in each orientation it tries and
+keeps the one whose best score against any reference is highest.  Plain
+PyTorch on the arrays the benchmark generated; imports nothing of the
+program.
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
 # base index of each mask (A G C U = 0 1 2 3)
@@ -73,6 +79,7 @@ class RefKmers:
         self.vals = torch.cat(vals)
         self.offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         self.offsets[1:] = torch.cumsum(torch.cat(counts), 0)
+        self._incidence = None  # made by the first top1()
 
     def scores(self, qmasks: torch.Tensor) -> torch.Tensor:
         """(n,) int64: one query's score against every reference."""
@@ -86,6 +93,74 @@ class RefKmers:
         starts[1:] = ends[:-1]
         empty = self.offsets[1:] == self.offsets[:-1]
         return torch.where(empty, 0, ends - starts)
+
+    def top1(self, queries: list[torch.Tensor], chunk: int = 256) -> torch.Tensor:
+        """(len(queries),) int64: each query's best score against any
+        reference, for all queries in one call: the references' k-mer
+        incidence (sparse, a row a reference) times the queries' k-mer
+        counts (a column a query), which float32 sums exactly at these
+        magnitudes (under 2**24)."""
+        k, dev = self.k, self.vals.device
+        if self._incidence is None:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # sparse CSR is "beta"
+                self._incidence = torch.sparse_csr_tensor(
+                    self.offsets.to(torch.int32), self.vals,
+                    torch.ones(self.vals.numel(), device=dev), size=(self.n, 4 ** (k - 1)))
+        out = []
+        for q0 in range(0, len(queries), chunk):
+            part = [q.to(dev) for q in queries[q0:q0 + chunk]]
+            lens = torch.tensor([q.numel() for q in part], device=dev)
+            off = torch.zeros(len(part) + 1, dtype=torch.int64, device=dev)
+            off[1:] = torch.cumsum(lens, 0)
+            v, ok = _kmer_values(torch.cat(part), _window_valid(off, k), k)
+            qid = torch.repeat_interleave(torch.arange(len(part), device=dev), lens)
+            cnt = torch.zeros((4 ** (k - 1), len(part)), device=dev)
+            cnt.index_put_((v[ok], qid[ok]), torch.ones(int(ok.sum()), device=dev),
+                           accumulate=True)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                best = (self._incidence @ cnt).amax(dim=0)
+            out.append(best.round().long())
+        return torch.cat(out) if out else torch.zeros(0, dtype=torch.int64, device=dev)
+
+
+# turn_slv of each orientation the turn check tries: 0 as is, 1
+# reversed, 2 complemented, 3 both (the names SINA writes)
+TURN_NAMES = ("none", "reversed", "complemented", "reversed and complemented")
+
+
+def complement(m):
+    """Base masks (a uint8 numpy array or torch tensor) complemented: A
+    and U (bits 0 and 3) swap, G and C (bits 1 and 2) swap, higher bits
+    stay.  The traffic generator turns reads with it too."""
+    return ((m & 1) << 3) | ((m & 8) >> 3) | ((m & 2) << 1) | ((m & 4) >> 1) | (m & 0xF0)
+
+
+def orient(masks: np.ndarray, which: int) -> np.ndarray:
+    """A query's masks in orientation `which` (see TURN_NAMES)."""
+    out = masks[::-1] if which in (1, 3) else masks
+    return complement(out) if which in (2, 3) else out.copy()
+
+
+def turn_check(kmers: RefKmers, queries: list[np.ndarray], all4: bool) -> list[int]:
+    """The orientation of each query: with `all4` (--turn all) as is,
+    reversed, complemented and both are tried, else (--turn) as is and
+    both; each orientation's top-1 score against every reference, all
+    orientations of all queries in one scoring call; a strict `>` in
+    that order, so a tie keeps the earlier orientation."""
+    tried = (0, 1, 2, 3) if all4 else (0, 3)
+    dev = kmers.vals.device
+    tops = kmers.top1([torch.from_numpy(orient(q, w)).to(dev) for q in queries
+                       for w in tried]).view(len(queries), len(tried)).tolist()
+    out = []
+    for row in tops:
+        best, best_score = 0, 0
+        for w, top in zip(tried, row):
+            if top > best_score:
+                best, best_score = w, top
+        out.append(best)
+    return out
 
 
 # the JAX package ranks with its grouped top-k from this many padded

@@ -6,12 +6,14 @@
 Runs one cell of BENCHMARK.json on the GPUs of this machine: makes the
 configuration's reference and the cell's traffic from the seed, drives
 sina_tpu_torch.pipeline.Pipeline.run for `--seconds`, checks what it
-wrote against the plain reference in benchmark/reference/, and prints
-one JSON line (the contract's keys) last on standard output.  With
---trace 0 the metrics are the cell's end-to-end metrics, with --trace 1
-its per-layer metrics (benchmark/metrics/<name>.py, found by name).
-Exits 1, printing no result, without a usable GPU, or when the port is
-not beside the benchmark.
+wrote against the plain reference in benchmark/reference/ (and the
+configuration's `checks`, benchmark/reference/checks/<name>.py, found by
+name), and prints one JSON line (the contract's keys) last on standard
+output.  With --trace 0 the metrics are the cell's end-to-end metrics,
+with --trace 1 its per-layer metrics (benchmark/metrics/<name>.py, found
+by name).  Exits 1, printing no result, without a usable GPU, when the
+port is not beside the benchmark, or when a limit names a number that
+no check gave.
 """
 
 import time
@@ -109,10 +111,21 @@ def memory_line() -> str:
 
 
 def limits_lines(nums: dict, limits: dict) -> tuple[bool, list, dict]:
+    """Each number judged by the limit of its name: (all within, the
+    lines, the `compared` object).  A limit whose number no check gave,
+    or a number (but those named `_...`) that no limit names, stops the
+    run (SystemExit naming it), before any result."""
+    given = [k for k in nums if not k.startswith("_")]
+    unknown = [k for k in limits if k not in nums]
+    unjudged = [k for k in given if k not in limits]
+    if unknown or unjudged:
+        raise SystemExit(f"benchmark: the configuration's limits name numbers that no check "
+                         f"gave: {unknown}; numbers that no limit names: {unjudged}; the "
+                         f"checks gave {given}")
     ok, lines, shown = True, [], {}
     for k, lim in limits.items():
         v = nums[k]
-        good = v <= lim
+        good = bool(v <= lim)
         ok &= good
         lines.append(f"{k} {v!r} limit {lim!r}{'' if good else '  FAILS'}")
         shown[k] = {"value": v, "limit": lim}
@@ -173,13 +186,14 @@ def main(argv=None) -> int:
 
     host_lines()
     run = runner.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", T0)
+    nums = runner.check(cell, run, args.seed, "cuda")
+    print(memory_line(), file=sys.stderr, flush=True)
+    out, lines = result(cell, run, nums, bool(args.trace), torch.cuda.get_device_name(0), need)
+    # last, once the checks and the metric readers have been loaded too
     bad = forbidden_modules()
     if bad:
         print(f"benchmark: the run loaded {bad}", file=sys.stderr)
         return 1
-    nums = runner.check(cell, run, args.seed, "cuda")
-    print(memory_line(), file=sys.stderr, flush=True)
-    out, lines = result(cell, run, nums, bool(args.trace), torch.cuda.get_device_name(0), need)
     for line in lines:
         print(line, file=sys.stderr)
     print(json.dumps(out), flush=True)

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import control
-from conftest import ROOT
+from conftest import HERE, ROOT
 from tiny import tiny_cell
 
 
@@ -33,17 +33,52 @@ def test_control_fails_limits(config, traffic, seed):
     assert ok, lines
 
 
-@pytest.mark.parametrize("module", ["reference.check", "reference.family",
-                                    "reference.profile_dp", "reference.graph_dp",
-                                    "reference.nast"])
-def test_reference_imports_nothing_of_the_program(module):
-    code = ("import sys; sys.path.insert(0, 'benchmark'); import " + module + "; "
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_control_fails_limits_turned(seed):
+    """The same with half the reads reverse-complemented and the
+    command line turning them: the control's records carry the plain
+    turn check's orientation and are judged with turn_differs."""
+    cell = tiny_cell(cli=("--turn", "all"), turned=0.5)
+    cell["config"]["limits"]["turn_differs"] = 0
+    ok, lines, nums = control.verdict(cell, seed, "cpu", 12)
+    assert not ok, lines
+    assert nums["turn_differs"] == 0 and nums["bases_altered"] == 0
+    ok, lines, _ = control.verdict(cell, seed, "cpu", 12, dtype=torch.float32)
+    assert ok, lines
+
+
+PROGRAM = {"jax", "jaxlib", "flax", "sina_tpu", "sina_tpu_torch"}
+CHECK_FILES = sorted([*(ROOT / "benchmark" / "reference" / "checks").glob("*.py"),
+                      *(HERE / "checks").glob("*.py")])
+
+
+def _loaded_after(code: str) -> set[str]:
+    """The top-level names in sys.modules of a fresh interpreter, with the
+    benchmark on its path, once `code` has run."""
+    code = ("import sys; sys.path.insert(0, 'benchmark'); " + code + "; "
             "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert p.returncode == 0, p.stderr
-    top = set(p.stdout.split())
-    assert not top & {"jax", "jaxlib", "flax", "sina_tpu", "sina_tpu_torch"}, top
+    return set(p.stdout.split())
+
+
+@pytest.mark.parametrize("module", sorted(f"reference.{p.stem}" for p in
+                                          (ROOT / "benchmark" / "reference").glob("*.py")
+                                          if p.stem != "__init__"))
+def test_reference_imports_nothing_of_the_program(module):
+    top = _loaded_after("import " + module)
+    assert not top & PROGRAM, top
+
+
+@pytest.mark.parametrize("path", CHECK_FILES, ids=[p.stem for p in CHECK_FILES])
+def test_check_modules_import_nothing_of_the_program(path):
+    """Every check module, production and test-only, loaded as a run
+    loads it (check.load_checks)."""
+    top = _loaded_after(f"from reference import check; "
+                        f"check.CHECK_DIRS[:] = [check.Path({str(path.parent)!r})]; "
+                        f"check.load_checks([{path.stem!r}])")
+    assert not top & PROGRAM, top
 
 
 def test_harness_imports_no_jax():

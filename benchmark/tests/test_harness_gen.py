@@ -44,6 +44,48 @@ def test_queries_deterministic_in_seed(amplicon):
     assert fa == gen.to_fasta(b)[0]
 
 
+# sha256 of to_fasta's bytes for test_queries_deterministic_in_seed's
+# seed, as the generator gave them before traffic could turn reads
+PARENT_FASTA = {
+    None: "5cfeabb0486d000b0b5d42c88809efc432971ece226aa0cf0edafddeae98a84e",
+    120: "8268e1ee3ddecd5893db71731b098cad71ecf2d634b0e31320e28f30d59f8cae",
+}
+
+
+@pytest.mark.parametrize("amplicon", [None, {"length": 120, "max_start": 100}])
+@pytest.mark.parametrize("turned", ["absent", None])
+def test_queries_unchanged_without_turned(amplicon, turned):
+    """Without `turned`, every byte generated is the parent's."""
+    import hashlib
+
+    kw = {} if turned == "absent" else {"turned": turned}
+    q = gen.make_queries(_ref(5), 50, 2**40 + 3, 0.7, "uniform", amplicon, "cpu", **kw)
+    assert q.turned is None
+    key = amplicon and amplicon["length"]
+    assert hashlib.sha256(gen.to_fasta(q)[0]).hexdigest() == PARENT_FASTA[key]
+
+
+@pytest.mark.parametrize("amplicon", [None, {"length": 120, "max_start": 100}])
+@pytest.mark.parametrize("share", [0.5, 1.0, 0.0])
+def test_turned_share_reverse_complemented(amplicon, share):
+    """`turned` reverse-complements round(share x n) queries drawn from
+    the seed, after the cut; the rest, every parent and every length
+    stay as without it."""
+    r = _ref(5)
+    a = gen.make_queries(r, 51, 2**40 + 3, 0.7, "uniform", amplicon, "cpu")
+    b = gen.make_queries(r, 51, 2**40 + 3, 0.7, "uniform", amplicon, "cpu", turned=share)
+    assert int(b.turned.sum()) == round(share * 51)
+    assert torch.equal(a.parents, b.parents) and torch.equal(a.offsets, b.offsets)
+    comp = {1: 8, 8: 1, 2: 4, 4: 2}
+    for i in range(a.n):
+        lo, hi = int(a.offsets[i]), int(a.offsets[i + 1])
+        x, y = a.masks[lo:hi].tolist(), b.masks[lo:hi].tolist()
+        assert y == ([comp[v] for v in reversed(x)] if b.turned[i] else x)
+    c = gen.make_queries(r, 51, 2**40 + 4, 0.7, "uniform", amplicon, "cpu", turned=share)
+    if 0 < share < 1:
+        assert not torch.equal(b.turned, c.turned)
+
+
 def test_fasta_records_parse():
     r = _ref(5)
     q = gen.make_queries(r, 5, 9, 0.7, "uniform", None, "cpu")
